@@ -13,46 +13,73 @@ last line:
      plain PyTorch version on the card: bitwise selection, p within 2e-6;
      kernel, plain and bound times;
   4. K2 (remap_anchors) likewise: bitwise;
-  5. serving at full width: a RenderServer with the fast DTU render preset's
-     model (ResNet34 + batch norm, ResnetFC 512x5, bf16, int8 quad latent,
-     A=256 paired anchors, 1000 candidates -> 32 samples, 4096-ray chunks),
-     random weights from a seed, a synthetic 4-view 256x320 scene, 3
-     requests at 256x320. Each request must launch K1 and K2 20 times each;
-  6. quality: the trained fixture tests/fixtures/fastpath_tiny.npz, loaded
-     with from_jax, renders its held-out scene on the card on the exact f32
-     and the fast paths (TF32 off), over 16 noise draws: mean exact
-     PSNR-vs-GT > 20 dB, |mean fast - mean exact| <= 0.1 dB, and each path's
-     first render agrees with the same render on the CPU;
-  7. one JSON line {"kernels": [...]} with every kernel's launches on the
-     main path (phase 5), error and times;
-  8. the last line {"ok": true, "device": {...}}.
+  5. K3 (likelihood_from_chord) at the same chunk: bitwise anchor ids,
+     p within 2e-6; times;
+  6. K4 (composite_rays) at 4096 rays x 32 samples in the field's float32:
+     rgb, depth and acc within 1e-5 + 1e-5 |plain| (the kernel's shuffle
+     scan and warp sums take the products and sums in another order); times;
+  7. serving at full width: RenderServer.from_preset(configs/
+     evaluate_diner_on_dtu_fast.yaml) (ResNet34 + batch norm, ResnetFC
+     512x5, bf16, int8 quad latent, A=256 paired anchors, 1000 candidates
+     -> 32 samples, 4096-ray chunks), random weights from a seed, a
+     synthetic 4-view 256x320 scene. 3 requests on the default "v1"
+     likelihood route must launch K1, K2 and K4 20 times each and K3 never;
+     then 2 requests on the "chord" route must launch K3, K2 and K4 20 times
+     each and K1 never;
+  8. the FaceScape fast preset (group norm, white background) serves 2
+     requests at 256x256: K1, K2 and K4 16 times each;
+  9. quality: the trained fixture tests/fixtures/fastpath_tiny.npz, loaded
+     with from_jax, renders its held-out scene on the card on the exact f32,
+     the fast and the fast chord-route paths (TF32 off), over 16 noise
+     draws: mean exact PSNR-vs-GT > 20 dB, |mean fast - mean exact| <= 0.1
+     dB on each fast path, and each path's first render agrees with the
+     same render on the CPU;
+  10. bulk eval: the random fast-DTU model goes through to_lightning and
+     torch.save, and cli/render_eval renders and scores two synthetic 4-view
+     256x320 scenes from that checkpoint: 8 PNGs, finite scores;
+  11. one JSON line {"kernels": [...]} with every kernel's launches on its
+     route (phase 7), error and times;
+  12. the last line {"ok": true, "device": {...}}.
 Exits nonzero, printing no result, when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DTU_PRESET = ROOT / "configs" / "evaluate_diner_on_dtu_fast.yaml"
+FACESCAPE_PRESET = ROOT / "configs" / "evaluate_diner_on_facescape_fast.yaml"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+SPIN_CYCLES = 2_000_000       # about 1 ms at the H100's 1.98 GHz
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # operations of K1 per candidate: gates (5), scale and the two erf
 # arguments (8), two erff (~20 each), the bin mass (3)
 K1_OPS_PER_CANDIDATE = 56
+# K3 per (view, candidate): K1's 56 and the chord arithmetic and anchor id
+# (10)
+K3_OPS_PER_CANDIDATE = 66
+# K4 per sample: delta, alpha with one expf (~12), the scan step, the
+# weight, and four multiply-adds
+K4_OPS_PER_SAMPLE = 25
 
-H, W, NV = 256, 320, 4   # presets.FAST_DTU_IMAGE, FAST_DTU_VIEWS
-N_REQUESTS = 3
+H, W, NV = 256, 320, 4   # the DTU evaluation image and its source views
+FACESCAPE_HW = (256, 256)
+N_REQUESTS = 3           # on the v1 route; the chord route and FaceScape: 2
 # one render's fast - exact PSNR delta moves by ~0.1 dB with the noise draw
 # alone (measured on the CPU over 12 draws: -0.16 .. +0.04 dB, mean
 # -0.06 dB), so the gate holds the mean over several draws
 QUALITY_SEEDS = 16
-G, NC, A, NS = 1 * NV * 4096, 1000, 256, 32   # one chunk of the preset
+NR = 4096                # rays per chunk of the preset
+G, NC, A, NS = 1 * NV * NR, 1000, 256, 32   # one chunk of the preset
 
 
 class SmokeFailure(Exception):
@@ -70,7 +97,9 @@ def log(*args):
 
 def time_ms(fn, flush, iters=30, warmup=3):
     """Median CUDA-event time of fn over `iters` runs, L2 flushed before
-    each."""
+    each. A spin of about 1 ms between the flush and the start event keeps
+    the card busy while the host enqueues fn's launches, so that the events
+    time device work and not the host's launch gaps."""
     import torch
 
     for _ in range(warmup):
@@ -78,6 +107,7 @@ def time_ms(fn, flush, iters=30, warmup=3):
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -201,41 +231,128 @@ def phase_k2(flush):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def phase_serve(card):
+def phase_k3(flush):
     import torch
 
-    from diner_tpu_torch.core import RenderConfig
-    from diner_tpu_torch.data import SyntheticSphereDataset
-    from diner_tpu_torch.kernels import KERNELS
-    from diner_tpu_torch.models import PixelNeRF
-    from diner_tpu_torch.presets import FAST_DTU_MODEL, FAST_DTU_RENDER
-    from diner_tpu_torch.serve import RenderServer
+    from diner_tpu_torch.kernels import (likelihood_from_chord,
+                                         likelihood_from_chord_plain)
 
-    torch.manual_seed(0)
-    model = PixelNeRF(**FAST_DTU_MODEL)
-    cfg = RenderConfig(**FAST_DTU_RENDER)
-    ds = SyntheticSphereDataset(n_scenes=1, n_views=NV, H=H, W=W, seed=0)
-    s = ds[0]
-    server = RenderServer(model, cfg, znear=ds.znear, zfar=ds.zfar,
-                          buckets=((H, W),), chunk=cfg.eval_chunk_rays)
-    chunks = -(-H * W // cfg.eval_chunk_rays)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    z = torch.sort(rand(1, NR, NC) * 2.0 + 1.0, dim=-1).values
+    # chords on which t(z) runs from about 0 to about 1: P0 = dd w0 c0 and
+    # P1 = dd w1 c1 make t a weighted mean of c0 ~ 0 and c1 ~ 1
+    w0, w1 = rand(1, NV, NR) * 1.5 + 0.5, rand(1, NV, NR) * 0.7 + 0.3
+    w0[..., :64] = -3.0                    # candidates behind the camera
+    dd = rand(1, NV, NR) * 1.95 + 0.05
+    c0, c1 = rand(1, NV, NR) * 0.2 - 0.1, rand(1, NV, NR) * 0.2 + 0.9
+    hs = (rand(1, 1, NR) * 0.009 + 0.001).expand(1, NV, NR)
+    scal = torch.stack([w0, w1, dd * w0 * c0, dd * w1 * c1, 1.0 / dd,
+                        (rand(1, NV, NR) > 0.05).float(),
+                        (rand(1, NV, NR) > 0.05).float(), hs], -1)
+    # anchor depths along each chord's cam-depth range, so that both sides
+    # of every gate occur
+    zc0, zc1 = w0 + 1.0 * w1, w0 + 3.0 * w1
+    frac = (torch.arange(A, device=dev) + 0.5) / A
+    depth = (zc0[..., None] + frac * (zc1 - zc0)[..., None]
+             + (rand(1, NV, NR, A) - 0.5) * 0.04)
+    std = rand(1, NV, NR, A) * 0.05
+    std[rand(1, NV, NR, A) < 0.2] = 0.0
+    vals = torch.stack([depth, std, rand(1, NV, NR, A) - 0.7], dim=3)
+    ddm = 0.05
+
+    p, ids = likelihood_from_chord(z, scal, vals, A, ddm, return_ids=True)
+    p_ref, ids_ref = likelihood_from_chord_plain(z, scal, vals, A, ddm,
+                                                 return_ids=True)
+    torch.cuda.synchronize()
+    check(torch.equal(ids, ids_ref), "K3 anchor ids differ from the plain "
+                                     "version's")
+    err = (p - p_ref).abs().max().item()
+    log(f"K3 likelihood_from_chord SB=1 NV={NV} NR={NR} NC={NC} A={A}: "
+        f"anchor ids bitwise equal; p max abs diff {err:.3e} (<= 2e-6: erff "
+        f"vs torch.erf ulps); {(p > 0).float().mean().item():.3f} of "
+        f"candidates pass the gates")
+    check(err <= 2e-6, f"K3 p differs by {err}")
+
+    ms = time_ms(lambda: likelihood_from_chord(z, scal, vals, A, ddm), flush)
+    plain_ms = time_ms(lambda: likelihood_from_chord_plain(
+        z, scal, vals, A, ddm), flush)
+    n_bytes = 4 * (NR * NC + NV * NR * 8 + NV * NR * 3 * A + NV * NR * NC)
+    bound_ms, bound_by = bound(n_bytes, K3_OPS_PER_CANDIDATE * NV * NR * NC)
+    log(f"K3 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB)")
+    return dict(name="likelihood_from_chord", route="cuda",
+                source="diner_tpu_torch/csrc/chord.cu",
+                replaces="diner_tpu/sampler/pallas_likelihood.py:225",
+                max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_k4(flush):
+    import torch
+
+    from diner_tpu_torch.kernels import composite_rays, composite_rays_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dev = torch.device("cuda")
+    B, K = NR, NS
+    rays = torch.zeros(1, B, 8, device=dev)
+    rays[..., 5], rays[..., 6], rays[..., 7] = 1.0, 1.0, 3.5
+    z = torch.sort(torch.rand(1, B, K, generator=gen, device=dev) * 2.5
+                   + 1.0, dim=-1).values
+    # the field's float32 output: sigmoid rgb, relu sigma (negatives too,
+    # to hold the clamp)
+    field = torch.rand(1, B * K, 4, generator=gen, device=dev)
+    field[..., 3] = torch.randn(1, B * K, generator=gen, device=dev) * 8.0
+    err = 0.0
+    for white in (False, True):
+        got = composite_rays(rays, z, field, white)
+        ref = composite_rays_plain(rays, z, field, white)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("rgb", "depth", "acc"), got, ref):
+            e = (g - r).abs()
+            err = max(err, e.max().item())
+            check(bool((e <= 1e-5 + 1e-5 * r.abs()).all()),
+                  f"K4 {name} (white_bkgd={white}) differs by "
+                  f"{e.max().item()}")
+    log(f"K4 composite_rays B={B} K={K} float32: rgb, depth and acc within "
+        f"1e-5 + 1e-5 |plain| (shuffle scan and warp sums in another order),"
+        f" max abs diff {err:.3e}, white background off and on")
+
+    ms = time_ms(lambda: composite_rays(rays, z, field), flush)
+    plain_ms = time_ms(lambda: composite_rays_plain(rays, z, field), flush)
+    n_bytes = 4 * (B * K + B * K * 4 + B + B * 5)
+    bound_ms, bound_by = bound(n_bytes, K4_OPS_PER_SAMPLE * B * K)
+    log(f"K4 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.2f} MB)")
+    return dict(name="composite_rays", route="cuda",
+                source="diner_tpu_torch/csrc/composite.cu",
+                replaces="diner_tpu/renderer/pallas_composite.py:76",
+                max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def _serve_requests(server, scene, H, W, seeds, expected, label, card):
+    """Requests with every kernel count set to 0 just before and read just
+    after each; each must launch exactly `expected` kernels. Returns the
+    counts of the whole run and the request times."""
+    import torch
+
+    from diner_tpu_torch.kernels import KERNELS
 
     for k in KERNELS.values():
         k.launches = 0
-    t = time.perf_counter()
-    server.load_scene("scene0", *(s[k][None] for k in (
-        "src_rgbs", "src_depths", "src_depth_stds", "src_extrinsics",
-        "src_intrinsics")))
-    torch.cuda.synchronize()
-    log(f"serve: load_scene (encode 4 x {H}x{W}) "
-        f"{time.perf_counter() - t:.3f} s")
-    counts = {n: [k.launches] for n, k in KERNELS.items()}
-    seconds = []
-    for i in range(N_REQUESTS):
+    counts = {n: [0] for n in KERNELS}
+    seconds, image = [], None
+    for seed in seeds:
         t = time.perf_counter()
-        rgb, depth = server.render("scene0", s["target_extrinsics"][None],
-                                   s["target_intrinsics"][None], H, W,
-                                   seed=i)
+        rgb, depth = server.render("scene0", scene["target_extrinsics"][None],
+                                   scene["target_intrinsics"][None], H, W,
+                                   seed=seed)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
         for n, k in KERNELS.items():
@@ -245,18 +362,79 @@ def phase_serve(card):
         check(rgb.min().item() >= 0.0 and rgb.max().item() <= 1.0,
               "rgb outside [0, 1]")
         check(bool(torch.isfinite(depth).all()), "depth not finite")
-        log(f"serve: request {i} {seconds[-1]:.4f} s, "
+        image = rgb if image is None else image
+        log(f"{label}: request {seed} {seconds[-1]:.4f} s, "
             f"{H * W / seconds[-1]:.1f} rays/s [{card}]")
-    launches = {n: c[-1] for n, c in counts.items()}
     for n, c in counts.items():
         steps = [b - a for a, b in zip(c, c[1:])]
-        check(c[0] == 0 and steps == [chunks] * N_REQUESTS,
-              f"{n} launches per request {steps}, expected {chunks} each")
-    med = statistics.median(seconds[1:])
-    log(f"serve: {N_REQUESTS} requests at {H}x{W}, launches per request "
-        f"{ {n: chunks for n in counts} }; steady request {med:.4f} s = "
-        f"{H * W / med:.1f} rays/s [{card}]")
-    return launches
+        check(steps == [expected[n]] * len(seeds),
+              f"{label}: {n} launches per request {steps}, expected "
+              f"{expected[n]} each")
+    steady = statistics.median(seconds[1:]) if len(seeds) > 2 \
+        else seconds[-1]
+    log(f"{label}: {len(seeds)} requests at {H}x{W}, launches per request "
+        f"{expected}; steady request {steady:.4f} s = "
+        f"{H * W / steady:.1f} rays/s [{card}]")
+    return {n: c[-1] for n, c in counts.items()}, image
+
+
+def _server(preset, hw, card):
+    import torch
+
+    from diner_tpu_torch.data import SyntheticSphereDataset
+    from diner_tpu_torch.serve import RenderServer
+
+    torch.manual_seed(0)
+    ds = SyntheticSphereDataset(n_scenes=1, n_views=NV, H=hw[0], W=hw[1],
+                                seed=0)
+    scene = ds[0]
+    server = RenderServer.from_preset(preset, None, ds.znear, ds.zfar,
+                                      buckets=(hw,))
+    t = time.perf_counter()
+    server.load_scene("scene0", *(scene[k][None] for k in (
+        "src_rgbs", "src_depths", "src_depth_stds", "src_extrinsics",
+        "src_intrinsics")))
+    torch.cuda.synchronize()
+    log(f"serve {preset.name}: load_scene (encode {NV} x {hw[0]}x{hw[1]}) "
+        f"{time.perf_counter() - t:.3f} s [{card}]")
+    return server, scene
+
+
+def phase_serve(card):
+    """The DTU fast preset on both likelihood routes. Returns each kernel's
+    launches on its own route."""
+    import numpy as np
+
+    server, scene = _server(DTU_PRESET, (H, W), card)
+    chunks = -(-H * W // server.cfg.eval_chunk_rays)
+    v1, rgb_v1 = _serve_requests(
+        server, scene, H, W, range(N_REQUESTS),
+        {"likelihood_from_anchors": chunks, "remap_anchors": chunks,
+         "likelihood_from_chord": 0, "composite_rays": chunks},
+        "serve v1", card)
+    server.cfg = dataclasses.replace(server.cfg, likelihood="chord")
+    chord, rgb_chord = _serve_requests(
+        server, scene, H, W, range(2),
+        {"likelihood_from_anchors": 0, "remap_anchors": chunks,
+         "likelihood_from_chord": chunks, "composite_rays": chunks},
+        "serve chord", card)
+    a, b = rgb_v1.cpu().numpy(), rgb_chord.cpu().numpy()
+    agree = -10.0 * np.log10(max(float(np.mean((a - b) ** 2)), 1e-20))
+    log(f"serve: request 0 on the chord route vs the v1 route (same seed, "
+        f"random weights): {agree:.2f} dB")
+    return dict(v1, likelihood_from_chord=chord["likelihood_from_chord"])
+
+
+def phase_facescape(card):
+    server, scene = _server(FACESCAPE_PRESET, FACESCAPE_HW, card)
+    check(server.cfg.white_bkgd, "the FaceScape preset has a white "
+                                 "background")
+    chunks = -(-FACESCAPE_HW[0] * FACESCAPE_HW[1]
+               // server.cfg.eval_chunk_rays)
+    _serve_requests(server, scene, *FACESCAPE_HW, range(2),
+                    {"likelihood_from_anchors": chunks,
+                     "remap_anchors": chunks, "likelihood_from_chord": 0,
+                     "composite_rays": chunks}, "serve facescape", card)
 
 
 def _fixture():
@@ -297,7 +475,9 @@ def phase_quality():
     fast = dict(compute_dtype="bfloat16", quad_latent=True,
                 latent_quant="int8")
     paths = {"exact_f32": ({}, dict(n_prior_anchors=0)),
-             "fast": (fast, dict(n_prior_anchors=96))}
+             "fast": (fast, dict(n_prior_anchors=96)),
+             "fast_chord": (fast, dict(n_prior_anchors=96,
+                                       likelihood="chord"))}
 
     def psnr(x, y):
         return float(-10.0 * np.log10(np.mean((x - y) ** 2)))
@@ -329,11 +509,68 @@ def phase_quality():
         log(f"quality: {name} PSNR-vs-GT per seed "
             f"{[round(p, 4) for p in result[name]]} dB on the card")
     mean = {n: statistics.fmean(p) for n, p in result.items()}
-    delta = mean["fast"] - mean["exact_f32"]
-    log(f"quality: mean PSNR-vs-GT exact {mean['exact_f32']:.4f} dB, fast "
-        f"{mean['fast']:.4f} dB, fast - exact {delta:+.4f} dB (gate 0.1 dB)")
     check(mean["exact_f32"] > 20.0, "fixture renders garbage")
-    check(abs(delta) <= 0.1, f"fast path off by {delta:+.4f} dB")
+    for name in ("fast", "fast_chord"):
+        delta = mean[name] - mean["exact_f32"]
+        log(f"quality: mean PSNR-vs-GT exact {mean['exact_f32']:.4f} dB, "
+            f"{name} {mean[name]:.4f} dB, {name} - exact {delta:+.4f} dB "
+            f"(gate 0.1 dB)")
+        check(abs(delta) <= 0.1, f"{name} path off by {delta:+.4f} dB")
+
+
+def phase_eval(card):
+    """Bulk eval from a reference-layout checkpoint of the random fast-DTU
+    model: two synthetic 4-view 256x320 scenes."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from diner_tpu_torch.cli import render_eval
+    from diner_tpu_torch.cli.build import build_diner
+    from diner_tpu_torch.core.config import load_config
+    from diner_tpu_torch.data import SyntheticSphereDataset
+    from diner_tpu_torch.kernels import KERNELS
+    from diner_tpu_torch.models import to_lightning
+
+    conf = load_config(DTU_PRESET)
+    conf["data"] = {"val": {"dataset": {
+        "module": "SyntheticSphereDataset",
+        "kwargs": {"n_scenes": 2, "n_views": NV, "H": H, "W": W,
+                   "seed": 5}}}}
+    torch.manual_seed(0)
+    model = build_diner(conf, SyntheticSphereDataset.znear,
+                        SyntheticSphereDataset.zfar)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save({"state_dict": to_lightning(model)}, tmp / "model.ckpt")
+        (tmp / "eval.yaml").write_text(yaml.safe_dump(conf))
+        for k in KERNELS.values():
+            k.launches = 0
+        t = time.perf_counter()
+        scores = render_eval.main([
+            "--config", str(tmp / "eval.yaml"), "--torch-ckpt",
+            str(tmp / "model.ckpt"), "--out", str(tmp / "out")])
+        seconds = time.perf_counter() - t
+        pngs = sorted(p.name for p in (tmp / "out" / "visualizations")
+                      .iterdir())
+        reports = sorted(p.name for p in (tmp / "out").iterdir())
+    chunks = 2 * -(-H * W // model.render_cfg.eval_chunk_rays)
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    log(f"eval: render_eval on 2 scenes at {H}x{W}: {len(pngs)} PNGs, "
+        f"reports {reports}, scores {scores}, {seconds:.3f} s in all = "
+        f"{seconds / 2:.3f} s per image with loading and scoring "
+        f"[{card}]; launches {launches}")
+    check(len(pngs) == 8 and all(
+        p.endswith(("-pred.png", "-gt.png", "-ref.png", "-depth.png"))
+        for p in pngs), f"eval wrote {pngs}")
+    check({"average_scores.json", "detailed_report.json",
+           "examples.png"} <= set(reports), f"eval reports {reports}")
+    check(all(np.isfinite(v) for v in scores.values()),
+          f"eval scores not finite: {scores}")
+    check(launches == {"likelihood_from_anchors": chunks,
+                       "remap_anchors": chunks, "likelihood_from_chord": 0,
+                       "composite_rays": chunks},
+          f"eval launches {launches}, expected {chunks} of K1, K2, K4")
 
 
 def main() -> int:
@@ -358,12 +595,15 @@ def main() -> int:
         card = phase_card()
         phase_build()
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-        kernels = [phase_k1(flush), phase_k2(flush)]
+        kernels = [phase_k1(flush), phase_k2(flush), phase_k3(flush),
+                   phase_k4(flush)]
         del flush
         launches = phase_serve(card)
         for k in kernels:
             k["launches"] = launches[k["name"]]
+        phase_facescape(card)
         phase_quality()
+        phase_eval(card)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+LIKELIHOOD_ROUTES = ("v1", "chord")
+
 
 @dataclasses.dataclass
 class SceneEncoding:
@@ -48,6 +50,12 @@ class RenderConfig:
     `approx_topk` is kept for config compatibility: the port always runs an
     exact `torch.topk`, which is what `jax.lax.approx_max_k` computes off the
     TPU.
+
+    `likelihood` picks the anchor branch's likelihood route: "v1" (kernel K1
+    on the ids and cam depths computed in PyTorch) or "chord" (kernel K3,
+    which computes them from the chord scalars itself). It is the port's
+    explicit counterpart of the JAX package's DINER_TPU_LIKELIHOOD switch,
+    with the same values and default.
     """
 
     n_samples: int = 40
@@ -61,6 +69,12 @@ class RenderConfig:
     n_prior_anchors: int = 0
     anchor_field_depth: bool = True
     paired_prior_gather: bool = False
+    likelihood: str = "v1"
+
+    def __post_init__(self):
+        if self.likelihood not in LIKELIHOOD_ROUTES:
+            raise ValueError(f"likelihood must be one of {LIKELIHOOD_ROUTES}, "
+                             f"got {self.likelihood!r}")
 
 
 @dataclasses.dataclass

@@ -83,6 +83,7 @@ class ResNetTrunk(nn.Module):
                  use_first_pool: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.backbone = backbone
         self.num_layers = num_layers
         self.use_first_pool = use_first_pool
         self.dtype = dtype

@@ -2,12 +2,13 @@
 
     python -m diner_tpu_torch.profile_serve [--requests N] [--json PATH]
 
-Builds the RenderServer of chip_smoke.py's serve phase (the fast DTU preset,
-random weights from seed 0, a synthetic 4-view 256x320 scene), warms it up
-with one request, then runs N requests under torch.profiler. Prints the
-card, each request's wall time, the device-busy share (the summed device
-time of all kernels over the wall time), and the operators and the kernels
-by device time; --json also writes them to PATH. Needs a CUDA device.
+Builds the RenderServer of chip_smoke.py's serve phase (the fast DTU preset
+from configs/evaluate_diner_on_dtu_fast.yaml, random weights from seed 0, a
+synthetic 4-view 256x320 scene), warms it up with one request, then runs N
+requests under torch.profiler. Prints the card, each request's wall time,
+the device-busy share (the summed device time of all kernels over the wall
+time), and the operators and the kernels by device time; --json also writes
+them to PATH. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,11 @@ import argparse
 import json
 import subprocess
 import time
+from pathlib import Path
+
+PRESET = (Path(__file__).resolve().parents[1] / "configs"
+          / "evaluate_diner_on_dtu_fast.yaml")
+IMAGE, VIEWS = (256, 320), 4   # the DTU evaluation size and source views
 
 
 def main(argv=None) -> int:
@@ -29,11 +35,8 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from diner_tpu_torch.core import RenderConfig, resolve_device
+    from diner_tpu_torch.core import resolve_device
     from diner_tpu_torch.data import SyntheticSphereDataset
-    from diner_tpu_torch.models import PixelNeRF
-    from diner_tpu_torch.presets import (FAST_DTU_IMAGE, FAST_DTU_MODEL,
-                                         FAST_DTU_RENDER, FAST_DTU_VIEWS)
     from diner_tpu_torch.serve import RenderServer
 
     resolve_device("cuda")
@@ -41,15 +44,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    H, W = FAST_DTU_IMAGE
+    H, W = IMAGE
     torch.manual_seed(0)
-    cfg = RenderConfig(**FAST_DTU_RENDER)
-    ds = SyntheticSphereDataset(n_scenes=1, n_views=FAST_DTU_VIEWS, H=H, W=W,
-                                seed=0)
+    ds = SyntheticSphereDataset(n_scenes=1, n_views=VIEWS, H=H, W=W, seed=0)
     s = ds[0]
-    server = RenderServer(PixelNeRF(**FAST_DTU_MODEL), cfg, znear=ds.znear,
-                          zfar=ds.zfar, buckets=((H, W),),
-                          chunk=cfg.eval_chunk_rays)
+    server = RenderServer.from_preset(PRESET, None, ds.znear, ds.zfar,
+                                      buckets=((H, W),))
     server.load_scene("scene0", *(s[k][None] for k in (
         "src_rgbs", "src_depths", "src_depth_stds", "src_extrinsics",
         "src_intrinsics")))

@@ -4,11 +4,17 @@ diner_tpu.renderer.composite).
 Last delta = far - z_K; alpha = 1 - exp(-delta * relu(sigma)); the
 transmittance cumprod carries the reference's 1e-10 stabilizer; an optional
 white background adds (1 - sum w).
+
+`composite` and `composite_outputs` return the weights, for the callers that
+need them (training). The render path composites through kernel K4,
+`kernels.composite.composite_rays`, which returns (rgb, depth, acc) only.
 """
 
 from __future__ import annotations
 
-import torch
+from diner_tpu_torch.kernels.composite import composite_outputs
+
+__all__ = ["composite", "composite_outputs", "sample_points"]
 
 
 def sample_points(rays, z_samp):
@@ -17,29 +23,6 @@ def sample_points(rays, z_samp):
     points = rays[..., None, :3] + z_samp[..., None] * rays[..., None, 3:6]
     dirs = rays[..., None, 3:6].expand(points.shape)
     return points.reshape(SB, B * K, 3), dirs.reshape(SB, B * K, 3)
-
-
-def composite_outputs(rays, z_samp, out, white_bkgd: bool = False):
-    """Composite field outputs out (SB, B*K, 4) [rgb, sigma] at the points of
-    `sample_points`. Returns (weights (SB, B, K), rgb (SB, B, 3),
-    depth (SB, B))."""
-    SB, B, K = z_samp.shape
-    deltas = torch.cat([z_samp[..., 1:] - z_samp[..., :-1],
-                        rays[..., 7:8] - z_samp[..., -1:]], dim=-1)
-    out = out.reshape(SB, B, K, 4)
-    rgbs = out[..., :3]
-    sigmas = out[..., 3]
-
-    alphas = 1.0 - torch.exp(-deltas * sigmas.clamp(min=0.0))
-    trans = torch.cumprod(torch.cat([torch.ones_like(alphas[..., :1]),
-                                     1.0 - alphas + 1e-10], dim=-1), dim=-1)
-    weights = alphas * trans[..., :-1]
-
-    rgb = (weights[..., None] * rgbs).sum(-2)
-    depth = (weights * z_samp).sum(-1)
-    if white_bkgd:
-        rgb = rgb + (1.0 - weights.sum(-1, keepdim=True))
-    return weights, rgb, depth
 
 
 def composite(field_fn, rays, z_samp, white_bkgd: bool = False):

@@ -19,7 +19,8 @@ import torch
 
 from diner_tpu_torch.core.device import resolve_device
 from diner_tpu_torch.core.types import RenderConfig, SceneEncoding
-from diner_tpu_torch.renderer.composite import composite
+from diner_tpu_torch.kernels.composite import composite_rays
+from diner_tpu_torch.renderer.composite import sample_points
 from diner_tpu_torch.sampler.depth_guided import sample_depthguided
 
 FieldFn = Callable[[torch.Tensor, torch.Tensor, Optional[object]],
@@ -28,14 +29,15 @@ FieldFn = Callable[[torch.Tensor, torch.Tensor, Optional[object]],
 
 def render_rays(field_fn: FieldFn, rays, enc: SceneEncoding,
                 cfg: RenderConfig, noise=None, generator=None):
-    """rays (SB, B, 8) -> dict(rgb (SB, B, 3), depth (SB, B))."""
+    """rays (SB, B, 8) -> dict(rgb (SB, B, 3), depth (SB, B)); the field's
+    outputs are composited by kernel K4."""
     z, epi_aux = sample_depthguided(rays, enc, cfg, noise, generator,
                                     return_aux=True)
     if not cfg.anchor_field_depth:
         epi_aux = None
-    _, rgb, depth = composite(
-        lambda pts, dirs: field_fn(pts, dirs, epi_aux), rays, z,
-        cfg.white_bkgd)
+    points, dirs = sample_points(rays, z)
+    rgb, depth, _ = composite_rays(rays, z, field_fn(points, dirs, epi_aux),
+                                   cfg.white_bkgd)
     return {"rgb": rgb, "depth": depth}
 
 

@@ -6,7 +6,8 @@ Per ray:
   2. Each candidate's prior (MVS depth d, depth std sigma, normal) in every
      source view: by nearest-pixel gathers at its projection (exact branch),
      or from A epipolar anchors per (ray, view) (anchor branch, the fast
-     preset), where kernel K1 does the remap and the likelihood.
+     preset), where kernel K1 does the remap and the likelihood, or, on the
+     "chord" route, kernel K3 also the chord arithmetic.
   3. Surface likelihood p = mass of N(d, sigma^2) inside the candidate's
      depth bin, gated on front-facing normals, |d - z_cam| < depth_diff_max
      and valid sigma; max over views; an occlusion-aware variant multiplies
@@ -27,8 +28,10 @@ from typing import Optional
 
 import torch
 
-from diner_tpu_torch.core.types import EpiAnchors, RenderConfig, SceneEncoding
+from diner_tpu_torch.core.types import (LIKELIHOOD_ROUTES, EpiAnchors,
+                                        RenderConfig, SceneEncoding)
 from diner_tpu_torch.geometry import project_points, transform_points
+from diner_tpu_torch.kernels.chord import likelihood_from_chord
 from diner_tpu_torch.kernels.likelihood import likelihood_from_anchors
 from diner_tpu_torch.utils.stats import weighted_mean_and_std
 
@@ -191,12 +194,14 @@ def _finish_likelihood(p, aux, return_aux: bool):
 def surface_likelihoods(rays, z, enc: SceneEncoding, depth_diff_max: float,
                         prior_stride: int = 1, n_prior_anchors: int = 0,
                         paired_prior_gather: bool = False,
-                        return_aux: bool = False):
+                        return_aux: bool = False, likelihood: str = "v1"):
     """Per-candidate surface likelihoods from the MVS depth priors.
 
     rays (SB, NR, 8); z (SB, NR, NC) distances along the unit ray dirs.
-    Returns (p, opaque_p), each (SB, NR, NC), and with return_aux=True the
-    EpiAnchors state (None unless anchors are on) as a third element.
+    likelihood: the anchor branch's route, "v1" (K1) or "chord" (K3; see
+    RenderConfig.likelihood). Returns (p, opaque_p), each (SB, NR, NC), and
+    with return_aux=True the EpiAnchors state (None unless anchors are on)
+    as a third element.
     """
     SB, NR, NC = z.shape
     NV = enc.poses.shape[1]
@@ -207,6 +212,9 @@ def surface_likelihoods(rays, z, enc: SceneEncoding, depth_diff_max: float,
     if s > 1 and n_prior_anchors:
         raise ValueError("prior_stride and n_prior_anchors are mutually "
                          "exclusive")
+    if likelihood not in LIKELIHOOD_ROUTES:
+        raise ValueError(f"likelihood must be one of {LIKELIHOOD_ROUTES}, "
+                         f"got {likelihood!r}")
 
     rot = enc.poses[..., :3, :3]                          # (SB, NV, 3, 3)
     dirs = rays[:, None, :, 3:6].expand(SB, NV, NR, 3)
@@ -252,6 +260,20 @@ def surface_likelihoods(rays, z, enc: SceneEncoding, depth_diff_max: float,
         aux = EpiAnchors(uv0=uv0, duv=duv, dd=dd, depth=ad)
         # the normal gate's cosine depends only on the anchor
         acos = (dirs_cam[:, :, :, None, :] * anrm).sum(-1)
+
+        if likelihood == "chord":
+            # K3 computes the ids and cam depths from these per-(view, ray)
+            # scalars itself
+            half_step = (rays[..., 7] - rays[..., 6]) / (2 * NC)  # (SB, NR)
+            scal = torch.stack([
+                w0, w1, P0, P1,
+                1.0 / torch.where(dd == 0, torch.ones_like(dd), dd),
+                (dd > 1e-12).to(rays.dtype), chord_ok.to(rays.dtype),
+                half_step[:, None].expand(SB, NV, NR)], dim=-1)
+            vals = torch.stack([ad, astd, acos], dim=3)   # (SB, NV, NR, 3, A)
+            p = likelihood_from_chord(z.float(), scal.float(), vals.float(),
+                                      A, depth_diff_max)
+            return _finish_likelihood(p, aux, return_aux)
 
         z_nv = z[:, None]                                 # (SB, 1, NR, NC)
         z_cam = w0[..., None] + z_nv * w1[..., None]      # (SB, NV, NR, NC)
@@ -347,7 +369,8 @@ def sample_depthguided(rays, enc: SceneEncoding, cfg: RenderConfig,
     p, opaque, aux = surface_likelihoods(
         rays, z_cand, enc, cfg.depth_diff_max,
         prior_stride=cfg.prior_stride, n_prior_anchors=cfg.n_prior_anchors,
-        paired_prior_gather=cfg.paired_prior_gather, return_aux=True)
+        paired_prior_gather=cfg.paired_prior_gather, return_aux=True,
+        likelihood=cfg.likelihood)
 
     top_p, top_idx = torch.topk(p, cfg.n_samples, dim=-1)
     z_sel = torch.gather(z_cand, -1, top_idx)

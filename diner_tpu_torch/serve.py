@@ -1,6 +1,8 @@
 """Scene-cache render server: encode once, render many (port of
-diner_tpu.serve.RenderServer, without the YAML `from_preset` builder).
+diner_tpu.serve.RenderServer).
 
+- `RenderServer.from_preset(config_path, ...)` builds a server from a YAML
+  render preset, e.g. configs/evaluate_diner_on_dtu_fast.yaml.
 - `load_scene(...)` runs the encoder once and keeps the SceneEncoding on the
   device (quad-packed / int8-quantized per the model's settings).
 - `render(scene_id, extrinsics, intrinsics, H, W)` renders novel views with
@@ -13,7 +15,7 @@ diner_tpu.serve.RenderServer, without the YAML `from_preset` builder).
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -30,6 +32,26 @@ class RenderServer:
     model: a PixelNeRF with its weights; it is moved to `device` (CUDA
     unless the caller asks for "cpu") and put in eval mode.
     """
+
+    @classmethod
+    def from_preset(cls, config_path, state_dict: Optional[Mapping],
+                    znear: float, zfar: float, **kw) -> "RenderServer":
+        """A server for the model and renderer of a YAML preset (its `nerf`
+        and `renderer` sections). state_dict: the PixelNeRF weights, which
+        must match the preset's model; None keeps the model's initial
+        weights, drawn from torch's global generator. `kw` goes to the
+        constructor (buckets, chunk, device); chunk defaults to the preset's
+        eval_chunk_rays."""
+        from diner_tpu_torch.cli.build import build_nerf, build_render_cfg
+        from diner_tpu_torch.core.config import load_config
+
+        conf = load_config(config_path)
+        model = build_nerf(conf.get("nerf", {}))
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        cfg = build_render_cfg(conf.get("renderer", {}))
+        kw.setdefault("chunk", cfg.eval_chunk_rays)
+        return cls(model, cfg, znear, zfar, **kw)
 
     def __init__(self, model: PixelNeRF, cfg: RenderConfig, znear: float,
                  zfar: float,

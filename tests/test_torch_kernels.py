@@ -1,6 +1,7 @@
 """diner_tpu_torch's kernels: the plain versions against a numpy/scipy oracle
-on the CPU, the CUDA kernels against their plain versions on the card, and
-chip_smoke.py's refusal to print a result without a card.
+on the CPU, the wrappers' input checks, the CUDA kernels against their plain
+versions on the card, and chip_smoke.py's refusal to print a result without
+a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
 machine without them (see README, "PyTorch/CUDA port"); the card tests carry
@@ -19,8 +20,12 @@ import pytest
 import torch
 from scipy.special import erf as scipy_erf
 
-from diner_tpu_torch.kernels import (KERNELS, likelihood_from_anchors,
+from diner_tpu_torch.kernels import (KERNELS, composite_rays,
+                                     composite_rays_plain,
+                                     likelihood_from_anchors,
                                      likelihood_from_anchors_plain,
+                                     likelihood_from_chord,
+                                     likelihood_from_chord_plain,
                                      remap_anchors, remap_anchors_plain)
 
 
@@ -44,6 +49,47 @@ def k1_inputs(seed, G, A, NC):
     z_cam = rng.rand(G, NC).astype(np.float32) * 2.0 + 1.0
     half_step = rng.rand(G, 1).astype(np.float32) * 0.01 + 0.001
     return a, vals, z_cam, half_step
+
+
+def chord_inputs(seed, SB, NV, NR, NC, A):
+    """K3 inputs: sorted candidates in [1, 3]; chords whose parameter t(z)
+    runs from about 0 to about 1 (P0 = dd w0 c0 and P1 = dd w1 c1 make t a
+    weighted mean of c0 ~ 0 and c1 ~ 1); a few rays behind the camera, with
+    dd_ok = 0 or chord_ok = 0; anchor depths along each chord's cam-depth
+    range, so that both sides of every gate occur."""
+    rng = np.random.RandomState(seed)
+    z = np.sort(rng.uniform(1.0, 3.0, (SB, NR, NC)), -1).astype(np.float32)
+    w0 = rng.uniform(0.5, 2.0, (SB, NV, NR))
+    w1 = rng.uniform(0.3, 1.0, (SB, NV, NR))
+    w0[:, :, :2] = -3.0
+    dd = rng.uniform(0.05, 2.0, (SB, NV, NR))
+    c0 = rng.uniform(-0.1, 0.1, (SB, NV, NR))
+    c1 = rng.uniform(0.9, 1.1, (SB, NV, NR))
+    hs = rng.uniform(0.001, 0.01, (SB, 1, NR)).repeat(NV, 1)
+    scal = np.stack([w0, w1, dd * w0 * c0, dd * w1 * c1, 1.0 / dd,
+                     rng.rand(SB, NV, NR) > 0.1, rng.rand(SB, NV, NR) > 0.1,
+                     hs], -1).astype(np.float32)
+    zc0, zc1 = (w0 + 1.0 * w1)[..., None], (w0 + 3.0 * w1)[..., None]
+    frac = (np.arange(A) + 0.5) / A
+    depth = zc0 + frac * (zc1 - zc0) + rng.uniform(-0.02, 0.02,
+                                                   (SB, NV, NR, A))
+    std = rng.uniform(0.0, 0.05, (SB, NV, NR, A))
+    std[rng.rand(SB, NV, NR, A) < 0.2] = 0.0
+    cos = rng.rand(SB, NV, NR, A) - 0.7
+    vals = np.stack([depth, std, cos], 3).astype(np.float32)
+    return z, scal, vals
+
+
+def composite_inputs(seed, SB, B, K):
+    """K4 inputs: rays with near 1 and far 3.5, ascending z, field outputs
+    with rgb in [0, 1] and sigma of both signs."""
+    rng = np.random.RandomState(seed)
+    rays = np.zeros((SB, B, 8), np.float32)
+    rays[..., 5], rays[..., 6], rays[..., 7] = 1.0, 1.0, 3.5
+    z = np.sort(rng.uniform(1.0, 3.5, (SB, B, K)), -1).astype(np.float32)
+    out = rng.rand(SB, B * K, 4).astype(np.float32)
+    out[..., 3] = rng.randn(SB, B * K) * 4.0
+    return rays, z, out
 
 
 def test_likelihood_plain_matches_scipy_oracle():
@@ -77,6 +123,88 @@ def test_remap_plain_is_bitwise_take_along_axis():
     np.testing.assert_array_equal(got, ref)
 
 
+def test_chord_plain_matches_numpy_oracle():
+    """K3's wrapper on CPU tensors runs the plain version (no launch). The
+    anchor ids equal a numpy float32 oracle that rounds each operation of
+    _chord_kernel's order on its own; p is within 2e-6 abs of the scipy erf
+    (float32 erf ulps)."""
+    SB, NV, NR, NC, A, ddm = 1, 3, 9, 80, 32, 0.05
+    z, scal, vals = chord_inputs(5, SB, NV, NR, NC, A)
+    before = KERNELS["likelihood_from_chord"].launches
+    p, ids = likelihood_from_chord(_t(z), _t(scal), _t(vals), A, ddm,
+                                   return_ids=True)
+    assert KERNELS["likelihood_from_chord"].launches == before
+    w0, w1, P0, P1, inv_dd, dd_ok, chord_ok, hs = np.moveaxis(
+        scal[..., None], 3, 0)
+    zz = z[:, None]
+    zc = w0 + zz * w1
+    zs = np.where(np.abs(zc) > 1e-9, zc, np.float32(1.0))
+    s = np.where(dd_ok > 0, (P0 + zz * P1) * inv_dd / zs, np.float32(0.5))
+    a = np.clip((np.clip(s, 0, 1) * np.float32(A)).astype(np.int32), 0,
+                A - 1)
+    np.testing.assert_array_equal(ids.numpy(), a)
+    d, std, cos = (np.take_along_axis(vals[:, :, :, c], a, -1)
+                   for c in range(3))
+    valid = ((chord_ok > 0) & (zc > 1e-9) & (cos <= 0)
+             & (np.abs(d - zc) < ddm) & (std != 0))
+    sstd = np.where(std == 0, 1.0, std) * math.sqrt(2.0)
+    ref = np.where(valid, 0.5 * np.abs(scipy_erf((zc + hs - d) / sstd)
+                                       - scipy_erf((zc - hs - d) / sstd)), 0)
+    assert 0.02 < (ref > 0).mean() < 0.98
+    np.testing.assert_allclose(p.numpy(), ref, atol=2e-6)
+    assert torch.equal(p, likelihood_from_chord_plain(
+        _t(z), _t(scal), _t(vals), A, ddm))
+
+
+def test_composite_plain_matches_numpy_oracle():
+    """K4's wrapper on CPU tensors runs the plain version (no launch), equal
+    to a sequential numpy float64 loop over the samples within 1e-6 abs and
+    1e-5 rel (float32 rounding), with K not a multiple of 32 and white
+    background off and on."""
+    rays, z, out = composite_inputs(6, 2, 7, 37)
+    SB, B, K = z.shape
+    f = out.reshape(SB, B, K, 4).astype(np.float64)
+    for white in (False, True):
+        before = KERNELS["composite_rays"].launches
+        rgb, depth, acc = composite_rays(_t(rays), _t(z), _t(out), white)
+        assert KERNELS["composite_rays"].launches == before
+        ref_rgb, ref_depth, ref_acc = (np.zeros((SB, B, 3)),
+                                       np.zeros((SB, B)), np.zeros((SB, B)))
+        for sb in range(SB):
+            for b in range(B):
+                trans = 1.0
+                for k in range(K):
+                    nxt = z[sb, b, k + 1] if k + 1 < K else rays[sb, b, 7]
+                    alpha = 1.0 - np.exp(-(nxt - z[sb, b, k])
+                                         * max(f[sb, b, k, 3], 0.0))
+                    w = alpha * trans
+                    ref_rgb[sb, b] += w * f[sb, b, k, :3]
+                    ref_depth[sb, b] += w * z[sb, b, k]
+                    ref_acc[sb, b] += w
+                    trans *= 1.0 - alpha + 1e-10
+        if white:
+            ref_rgb += 1.0 - ref_acc[..., None]
+        for got, ref in ((rgb, ref_rgb), (depth, ref_depth), (acc, ref_acc)):
+            np.testing.assert_allclose(got.numpy(), ref, atol=1e-6,
+                                       rtol=1e-5)
+
+
+def test_composite_refuses_grad_off_the_cpu():
+    """The K4 kernel has no backward: off the CPU, inputs that require grad
+    raise before any launch (meta tensors stand in for the card here). On
+    the CPU the plain version keeps the autograd graph."""
+    rays, z, out = (torch.empty(1, 4, 8, device="meta"),
+                    torch.empty(1, 4, 3, device="meta"),
+                    torch.empty(1, 12, 4, device="meta", requires_grad=True))
+    with pytest.raises(RuntimeError, match="no backward"):
+        composite_rays(rays, z, out)
+    rays, z, out = (_t(x) for x in composite_inputs(1, 1, 4, 3))
+    out.requires_grad_(True)
+    rgb, _, _ = composite_rays(rays, z, out)
+    rgb.sum().backward()
+    assert out.grad is not None and torch.isfinite(out.grad).all()
+
+
 def test_kernel_wrappers_reject_bad_inputs():
     a, vals, z, hs = (_t(x) for x in k1_inputs(1, 4, 8, 10))
     with pytest.raises(TypeError):
@@ -87,6 +215,20 @@ def test_kernel_wrappers_reject_bad_inputs():
         remap_anchors(a, vals.double())
     with pytest.raises(ValueError):
         remap_anchors(a[:2], vals)
+    z, scal, vals = (_t(x) for x in chord_inputs(1, 1, 2, 3, 10, 8))
+    with pytest.raises(TypeError):
+        likelihood_from_chord(z.double(), scal, vals, 8, 0.05)
+    with pytest.raises(ValueError):     # n_anchors is not vals' A
+        likelihood_from_chord(z, scal, vals, 16, 0.05)
+    with pytest.raises(ValueError):
+        likelihood_from_chord(z[:, :2], scal, vals, 8, 0.05)
+    rays, z, out = (_t(x) for x in composite_inputs(1, 1, 4, 3))
+    with pytest.raises(TypeError):
+        composite_rays(rays, z, out.double())
+    with pytest.raises(ValueError):
+        composite_rays(rays, z, out[:, :6])
+    with pytest.raises(ValueError):
+        composite_rays(rays[:, :2], z, out)
 
 
 @pytest.fixture
@@ -123,6 +265,42 @@ def test_remap_kernel_matches_plain_on_card(cuda):
     out = remap_anchors(a, vals)
     assert KERNELS["remap_anchors"].launches == before + 1
     assert torch.equal(out, remap_anchors_plain(a, vals))
+
+
+@pytest.mark.cuda
+def test_chord_kernel_matches_plain_on_card(cuda):
+    """Kernel vs plain version on the card, NR and NC not multiples of the
+    block: bitwise anchor ids; p within 2e-6 (erff vs torch.erf)."""
+    z, scal, vals = (_t(x).to(cuda)
+                     for x in chord_inputs(7, 2, 3, 37, 1000, 256))
+    before = KERNELS["likelihood_from_chord"].launches
+    p, ids = likelihood_from_chord(z, scal, vals, 256, 0.05, return_ids=True)
+    p_ref, ids_ref = likelihood_from_chord_plain(z, scal, vals, 256, 0.05,
+                                                 return_ids=True)
+    torch.cuda.synchronize()
+    assert KERNELS["likelihood_from_chord"].launches == before + 1
+    assert torch.equal(ids, ids_ref)
+    assert (p > 0).any()
+    assert (p - p_ref).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white", [False, True])
+def test_composite_kernel_matches_plain_on_card(cuda, white):
+    """Kernel vs plain version on the card, with K = 40 (a second, partial
+    32-sample tile and its carry) and B = 1001 rays: within 1e-5 + 1e-5
+    |plain| (the shuffle scan and the warp sums take the products and sums
+    in another order)."""
+    rays, z, out = (_t(x).to(cuda) for x in composite_inputs(8, 2, 1001, 40))
+    before = KERNELS["composite_rays"].launches
+    got = composite_rays(rays, z, out, white)
+    ref = composite_rays_plain(rays, z, out, white)
+    torch.cuda.synchronize()
+    assert KERNELS["composite_rays"].launches == before + 1
+    for g, r in zip(got, ref):
+        assert ((g - r).abs() <= 1e-5 + 1e-5 * r.abs()).all()
+    with pytest.raises(RuntimeError, match="no backward"):
+        composite_rays(rays, z, out.requires_grad_(True), white)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

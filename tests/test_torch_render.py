@@ -7,12 +7,17 @@ both packages, fed the same draws (the JAX renderer's key splits,
 renderer.py:74 and depth_guided.py:488, rebuilt here). Gates:
 - exact f32: PSNR of port vs JAX >= 40 dB and |dPSNR-vs-GT| <= 0.05 dB;
 - fast (anchors + quad int8 latent + bf16): |dPSNR-vs-GT| <= 0.1 dB vs the
-  JAX fast render.
+  JAX fast render;
+- the fast render on the chord likelihood route (K3) vs the default route
+  (K1), in the port with the same draws: >= 40 dB apart and |dPSNR-vs-GT|
+  <= 0.1 dB (the JAX package's chord route needs the TPU, so it has no CPU
+  counterpart at this level).
 Measured on the CPU when written: exact 111.7 dB port vs JAX, dPSNR 0.000
 dB; fast dPSNR -0.005 dB, paired -0.004 dB (65 dB port vs JAX: bf16
 rounds at other places in the two frameworks).
 """
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -29,7 +34,9 @@ from diner_tpu.data import to_device_batch
 from diner_tpu.models import PixelNeRF as JPixelNeRF
 from diner_tpu.models.diner import DINER as JDINER
 from diner_tpu.renderer.composite import composite_outputs as j_composite
+from diner_tpu.renderer.pallas_composite import composite_pallas
 from diner_tpu_torch.core import RenderConfig
+from diner_tpu_torch.kernels import composite_rays
 from diner_tpu_torch.data import SyntheticSphereDataset, collate
 from diner_tpu_torch.models import DINER, PixelNeRF, from_jax
 from diner_tpu_torch.renderer import composite_outputs, render_image
@@ -56,6 +63,33 @@ def test_composite_matches_jax():
                                 torch.from_numpy(out), white)
         for g, r in zip(got, ref):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5)
+
+
+@pytest.mark.parametrize("white", [False, True])
+def test_composite_rays_matches_jax_kernel(white):
+    """K4's plain version vs the JAX package's Pallas kernel in interpret
+    mode and its XLA composite, B = 45 rays (not a multiple of 32 or of the
+    Pallas block), K = 12: rtol 1e-5, atol 1e-6 (float32 products and sums
+    in another order)."""
+    rng = np.random.RandomState(1)
+    SB, B, K = 2, 45, 12
+    z = np.sort(rng.uniform(1.0, 3.0, (SB, B, K)), -1).astype(np.float32)
+    rays = np.zeros((SB, B, 8), np.float32)
+    rays[..., 5], rays[..., 6], rays[..., 7] = 1.0, 1.0, 3.5
+    out = rng.randn(SB, B * K, 4).astype(np.float32)
+    got = composite_rays(torch.from_numpy(rays), torch.from_numpy(z),
+                         torch.from_numpy(out), white)
+    ref = composite_pallas(jnp.asarray(rays), jnp.asarray(z),
+                           jnp.asarray(out.reshape(SB, B, K, 4)), white,
+                           block=16, interpret=True)
+    weights, rgb, depth = j_composite(jnp.asarray(rays), jnp.asarray(z),
+                                      jnp.asarray(out), white)
+    xla = (rgb, depth, jnp.sum(weights, axis=-1))
+    for g, r, x in zip(got, ref, xla):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def _fixture_params():
@@ -130,6 +164,11 @@ def renders():
         assert rgb_t.shape == (1, H, W, 3) and depth_t.shape == (1, H, W)
         out[name] = (np.clip(rgb_t.numpy(), 0, 1),
                      np.clip(np.asarray(rgb_j), 0, 1))
+        if name == "fast":   # the same render on the chord route
+            tm.render_cfg = dataclasses.replace(cfg, likelihood="chord")
+            rgb_c, _ = tm.render_batch(batch, noise=noise, device="cpu")
+            out["fast_chord"] = (np.clip(rgb_c.numpy(), 0, 1),
+                                 out["fast"][0])
     return out, batch["target_rgb"]
 
 
@@ -146,6 +185,16 @@ def test_render_fast_matches_jax_in_psnr(renders, path):
     out, gt = renders
     port, ref = out[path]
     assert abs(_psnr(port, gt) - _psnr(ref, gt)) <= 0.1
+
+
+def test_render_chord_route_matches_default_route(renders):
+    """Measured on the CPU when written: the chord route's render equals
+    the default route's (PSNR inf), since no anchor id flipped where it
+    changed the top-k candidates."""
+    out, gt = renders
+    chord, v1 = out["fast_chord"]
+    assert _psnr(chord, v1) >= 40.0
+    assert abs(_psnr(chord, gt) - _psnr(v1, gt)) <= 0.1
 
 
 def _small_server(**kw):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import chord_inputs as _chord_inputs
 from test_torch_kernels import k1_inputs as _k1_inputs
 
 from diner_tpu.core.types import (RenderConfig as JRenderConfig,
@@ -21,8 +22,11 @@ from diner_tpu.data import collate as j_collate
 from diner_tpu.geometry import depth2normal as j_depth2normal
 from diner_tpu.geometry import gen_rays as j_gen_rays
 from diner_tpu.sampler import depth_guided as jdg
+from diner_tpu.sampler.pallas_likelihood import (
+    likelihood_from_chord as j_likelihood_from_chord)
 from diner_tpu_torch.core import RenderConfig, SceneEncoding
-from diner_tpu_torch.kernels import likelihood_from_anchors
+from diner_tpu_torch.kernels import (likelihood_from_anchors,
+                                     likelihood_from_chord)
 from diner_tpu_torch.sampler import depth_guided as tdg
 
 
@@ -48,6 +52,22 @@ def test_likelihood_plain_matches_jax_fallback():
         jax.scipy.special.erf((jz + jhs - d) / safe)
         - jax.scipy.special.erf((jz - jhs - d) / safe)), 0.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-6)
+
+
+def test_chord_plain_matches_jax_kernel():
+    """K3's plain version vs the JAX package's Pallas kernel in interpret
+    mode on the same numpy inputs, NR not a multiple of its 8-ray tile. The
+    tolerance is the JAX test's own, atol 2e-5 and rtol 1e-3: the TPU kernel
+    evaluates erf by the A&S polynomial, the port the true erf."""
+    SB, NV, NR, NC, A, ddm = 1, 2, 12, 64, 32, 0.05
+    z, scal, vals = _chord_inputs(0, SB, NV, NR, NC, A)
+    got = likelihood_from_chord(_t(z), _t(scal), _t(vals), A, ddm).numpy()
+    ref = np.asarray(j_likelihood_from_chord(
+        jnp.asarray(z), jnp.asarray(scal), jnp.asarray(vals), A, ddm,
+        interpret=True))
+    assert got.shape == ref.shape == (SB, NV, NR, NC)
+    assert (ref > 0).mean() > 0.02
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-3)
 
 
 # -- the sampler on a synthetic scene ----------------------------------------
@@ -153,3 +173,54 @@ def test_sample_depthguided_draws_from_generator():
     assert torch.equal(z1, z2)
     assert (z1[..., 1:] >= z1[..., :-1]).all()
     assert ((z1 >= 1.0) & (z1 <= 3.5)).all()
+
+
+def test_chord_route_matches_jax_anchor_path(monkeypatch):
+    """surface_likelihoods(likelihood="chord") vs the JAX package's XLA
+    anchor path on the same candidates. The chord route reassociates the
+    chord parameter (t = (P0 + z P1) inv_dd / zc against the XLA path's
+    (P0 + z P1) / (zc dd)), so it may pick the other anchor at an anchor
+    boundary: as in tests/test_sampler.py's chord test, candidates whose
+    parameter lies within 1e-4 of a boundary between two anchors in any
+    view are left out. The rest agree within 2e-5 abs: XLA on the CPU
+    rounds z_cam = w0 + z w1 as one fused multiply-add, the port as two
+    operations, and one ulp of z_cam (2.4e-7 at 2 m) moves the erf
+    arguments by ulp / (sqrt2 std), 1.7e-5 at the scene's std of 0.01."""
+    fields, rays = _scene(seed=3)
+    jenc, tenc = _encs(fields)
+    A, NC = 64, 200
+    z = np.asarray(jdg.sample_stratified(jax.random.PRNGKey(5),
+                                         jnp.asarray(rays), NC))
+    jp, _ = jax.jit(lambda r, zz, e: jdg.surface_likelihoods(
+        r, zz, e, 0.05, n_prior_anchors=A))(jnp.asarray(rays),
+                                            jnp.asarray(z), jenc)
+    seen = {}
+
+    def spy(zz, scal, vals, n_anchors, ddm):
+        seen["scal"] = scal.numpy().astype(np.float64)
+        return likelihood_from_chord(zz, scal, vals, n_anchors, ddm)
+
+    monkeypatch.setattr(tdg, "likelihood_from_chord", spy)
+    tp, _ = tdg.surface_likelihoods(_t(rays), _t(z), tenc, 0.05,
+                                    n_prior_anchors=A, likelihood="chord")
+    w0, w1, P0, P1, inv_dd, dd_ok = np.moveaxis(seen["scal"][..., :6, None],
+                                                3, 0)
+    zz = z[:, None].astype(np.float64)
+    s = np.where(dd_ok > 0, (P0 + zz * P1) * inv_dd / (w0 + zz * w1), 0.5)
+    frac = np.clip(s, 0.0, 1.0) * A
+    k = np.round(frac)     # ids 0 and A - 1 extend past the clipped ends
+    safe = ((np.abs(frac - k) > 1e-4) | (k < 1) | (k > A - 1)).all(axis=1)
+    assert safe.mean() > 0.99 and float(np.asarray(jp).max()) > 0.01
+    np.testing.assert_allclose(np.where(safe, tp.numpy(), 0.0),
+                               np.where(safe, np.asarray(jp), 0.0), atol=2e-5)
+
+
+def test_likelihood_route_is_checked():
+    with pytest.raises(ValueError, match="likelihood"):
+        RenderConfig(likelihood="v2")
+    fields, rays = _scene()
+    _, tenc = _encs(fields)
+    with pytest.raises(ValueError, match="likelihood"):
+        tdg.surface_likelihoods(_t(rays), torch.ones(1, rays.shape[1], 8),
+                                tenc, 0.05, n_prior_anchors=8,
+                                likelihood="v2")
