@@ -12,9 +12,14 @@ last line:
   3. K1 (likelihood_from_anchors) at the fast preset's chunk shapes vs its
      plain PyTorch version on the card: bitwise selection, p within 2e-6;
      kernel, plain and bound times;
-  4. K2 (remap_anchors) likewise: bitwise;
+  4. K2 (remap_anchors) likewise: bitwise, also at ragged shapes (NS 7, 32
+     and 45; C 1 and 5; K 6 and 256; a partial last block of 256 threads);
+     kernel, plain, torch.gather and bound times;
   5. K3 (likelihood_from_chord) at the same chunk: bitwise anchor ids,
-     p within 2e-6; times;
+     p within 2e-6, the share of gated-off (view, candidate) pairs (the
+     kernel's time depends on it); also at ragged shapes (NC 997, NV 1
+     and 3, SB 2, A 8 and 1,024) with std and cos at the gates' edges
+     (NaN p where the plain version's is NaN); times;
   6. K4 (composite_rays) at 4096 rays x 32 samples in the field's float32:
      rgb, depth and acc within 1e-5 + 1e-5 |plain| (the kernel's shuffle
      scan and warp sums take the products and sums in another order); times;
@@ -65,8 +70,9 @@ F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # arguments (8), two erff (~20 each), the bin mass (3)
 K1_OPS_PER_CANDIDATE = 56
 # K3 per (view, candidate): K1's 56 and the chord arithmetic and anchor id
-# (10)
+# (10); the two erff (40 of them) only where the gates pass
 K3_OPS_PER_CANDIDATE = 66
+K3_OPS_ERF = 40
 # K4 per sample: delta, alpha with one expf (~12), the scan step, the
 # weight, and four multiply-adds
 K4_OPS_PER_SAMPLE = 25
@@ -202,18 +208,34 @@ def phase_k2(flush):
     import torch
 
     from diner_tpu_torch.kernels import remap_anchors, remap_anchors_plain
+    from diner_tpu_torch.kernels.remap import launch_geometry
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    dev = torch.device("cuda")
-    vals = torch.rand(G, 1, A, generator=gen, device=dev) * 2.0 + 1.0
-    a = torch.randint(0, A, (G, NS), generator=gen, device=dev)
-    a = torch.sort(a, dim=-1).values.to(torch.int32)
+    def inputs(seed, g, c, ns, k):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        vals = torch.rand(g, c, k, generator=gen, device="cuda") * 2.0 + 1.0
+        a = torch.randint(0, k, (g, ns), generator=gen, device="cuda")
+        return torch.sort(a, dim=-1).values.to(torch.int32), vals
+
+    a, vals = inputs(2, G, 1, NS, A)
     out = remap_anchors(a, vals)
     ref = remap_anchors_plain(a, vals)
     torch.cuda.synchronize()
     check(torch.equal(out, ref), "K2 differs from the plain version")
     err = (out - ref).abs().max().item()
     log(f"K2 remap_anchors G={G} NS={NS} A={A}: bitwise equal")
+    # ragged shapes: NS below, at and above a warp, C > 1, K not a multiple
+    # of 4, outputs that do not fill the last block's threads
+    shapes = [(1001, c, ns, k) for ns in (7, 32, 45) for c in (1, 5)
+              for k in (6, 256)]
+    for i, (g, c, ns, k) in enumerate(shapes):
+        check(g * c * ns % launch_geometry(g, c, ns)[1] != 0,
+              "the outputs fill the last block")
+        ra, rv = inputs(20 + i, g, c, ns, k)
+        check(torch.equal(remap_anchors(ra, rv), remap_anchors_plain(ra, rv)),
+              f"K2 differs from the plain version at G={g} C={c} NS={ns} "
+              f"K={k}")
+    torch.cuda.synchronize()
+    log(f"K2 ragged (G, C, NS, K) {shapes}: bitwise equal")
 
     idx = a.long()[:, None, :]
     ms = time_ms(lambda: remap_anchors(a, vals), flush)
@@ -236,35 +258,15 @@ def phase_k3(flush):
 
     from diner_tpu_torch.kernels import (likelihood_from_chord,
                                          likelihood_from_chord_plain)
+    from diner_tpu_torch.kernels.cases import (chord_inputs, max_abs_diff,
+                                               with_edge_cases)
+    from diner_tpu_torch.kernels.chord import chord_gate
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    dev = torch.device("cuda")
+    def on_card(*arrays):
+        return (torch.from_numpy(x).cuda() for x in arrays)
 
-    def rand(*shape):
-        return torch.rand(*shape, generator=gen, device=dev)
-
-    z = torch.sort(rand(1, NR, NC) * 2.0 + 1.0, dim=-1).values
-    # chords on which t(z) runs from about 0 to about 1: P0 = dd w0 c0 and
-    # P1 = dd w1 c1 make t a weighted mean of c0 ~ 0 and c1 ~ 1
-    w0, w1 = rand(1, NV, NR) * 1.5 + 0.5, rand(1, NV, NR) * 0.7 + 0.3
-    w0[..., :64] = -3.0                    # candidates behind the camera
-    dd = rand(1, NV, NR) * 1.95 + 0.05
-    c0, c1 = rand(1, NV, NR) * 0.2 - 0.1, rand(1, NV, NR) * 0.2 + 0.9
-    hs = (rand(1, 1, NR) * 0.009 + 0.001).expand(1, NV, NR)
-    scal = torch.stack([w0, w1, dd * w0 * c0, dd * w1 * c1, 1.0 / dd,
-                        (rand(1, NV, NR) > 0.05).float(),
-                        (rand(1, NV, NR) > 0.05).float(), hs], -1)
-    # anchor depths along each chord's cam-depth range, so that both sides
-    # of every gate occur
-    zc0, zc1 = w0 + 1.0 * w1, w0 + 3.0 * w1
-    frac = (torch.arange(A, device=dev) + 0.5) / A
-    depth = (zc0[..., None] + frac * (zc1 - zc0)[..., None]
-             + (rand(1, NV, NR, A) - 0.5) * 0.04)
-    std = rand(1, NV, NR, A) * 0.05
-    std[rand(1, NV, NR, A) < 0.2] = 0.0
-    vals = torch.stack([depth, std, rand(1, NV, NR, A) - 0.7], dim=3)
+    z, scal, vals = on_card(*chord_inputs(3, 1, NV, NR, NC, A))
     ddm = 0.05
-
     p, ids = likelihood_from_chord(z, scal, vals, A, ddm, return_ids=True)
     p_ref, ids_ref = likelihood_from_chord_plain(z, scal, vals, A, ddm,
                                                  return_ids=True)
@@ -272,17 +274,41 @@ def phase_k3(flush):
     check(torch.equal(ids, ids_ref), "K3 anchor ids differ from the plain "
                                      "version's")
     err = (p - p_ref).abs().max().item()
+    n_on = chord_gate(z, scal, vals, A, ddm).sum().item()
+    off = 1.0 - n_on / (NV * NR * NC)
     log(f"K3 likelihood_from_chord SB=1 NV={NV} NR={NR} NC={NC} A={A}: "
-        f"anchor ids bitwise equal; p max abs diff {err:.3e} (<= 2e-6: erff "
-        f"vs torch.erf ulps); {(p > 0).float().mean().item():.3f} of "
-        f"candidates pass the gates")
+        f"anchor ids bitwise equal; p max abs diff {err:.3e} (<= 2e-6: "
+        f"products by 1 / (sqrt2 std) for the divisions, erff vs torch.erf "
+        f"ulps); gated off (both erf skipped): {off:.4f} of the (view, "
+        f"candidate) pairs")
     check(err <= 2e-6, f"K3 p differs by {err}")
+    # ragged shapes: NC not a multiple of 4 (scalar z, p and ids), one and
+    # three views, two batch rows, A below a warp and A = 1,024 (32.9 KB of
+    # shared memory at NV = 3); std and cos at the edges of the gates
+    errs = []
+    for i, (nv, a) in enumerate((nv, a) for nv in (1, 3) for a in (8, 1024)):
+        rz, rs, rv = chord_inputs(30 + i, 2, nv, 37, 997, a)
+        rz, rs, rv = on_card(rz, rs, with_edge_cases(rv, seed=i))
+        rp, rids = likelihood_from_chord(rz, rs, rv, a, ddm, return_ids=True)
+        rp_ref, rids_ref = likelihood_from_chord_plain(rz, rs, rv, a, ddm,
+                                                       return_ids=True)
+        check(torch.equal(rids, rids_ref), f"K3 anchor ids differ at NV={nv}"
+                                           f" A={a}")
+        errs.append(max_abs_diff(rp, rp_ref))
+        check(errs[-1] <= 2e-6, f"K3 p differs by {errs[-1]} at NV={nv} "
+                                f"A={a}")
+    log(f"K3 ragged SB=2 NR=37 NC=997 NV in (1, 3) A in (8, 1024) with edge "
+        f"std and cos: anchor ids bitwise equal, p max abs diff "
+        f"{max(errs):.3e}, NaN where the plain version's p is NaN")
 
     ms = time_ms(lambda: likelihood_from_chord(z, scal, vals, A, ddm), flush)
     plain_ms = time_ms(lambda: likelihood_from_chord_plain(
         z, scal, vals, A, ddm), flush)
     n_bytes = 4 * (NR * NC + NV * NR * 8 + NV * NR * 3 * A + NV * NR * NC)
-    bound_ms, bound_by = bound(n_bytes, K3_OPS_PER_CANDIDATE * NV * NR * NC)
+    # the erff run only where the gates pass: count this input's share
+    n_ops = ((K3_OPS_PER_CANDIDATE - K3_OPS_ERF) * NV * NR * NC
+             + K3_OPS_ERF * n_on)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
     log(f"K3 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB)")
     return dict(name="likelihood_from_chord", route="cuda",

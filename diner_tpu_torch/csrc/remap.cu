@@ -11,10 +11,16 @@
 // coalesced; the reads of vals hit the group's A values, which the
 // neighbouring threads of the same group share through L1/L2.
 //
-// Bound on the H100 (3.35 TB/s HBM): memory-bound. At the preset's chunk
+// Bound on the H100 (3.35 TB/s HBM): bytes. At the preset's chunk
 // (G = 16,384, C = 1, NS = 32, A = 256) it must move a + out =
 // G * NS * 8 B = 4.2 MB plus vals = G * A * 4 B = 16.8 MB, 21 MB or about
-// 6 us. No arithmetic beyond addressing.
+// 6 us. No arithmetic beyond addressing. A gather reads only the 32-byte
+// sectors of vals that its ids touch, and on the render path they are
+// scattered over most of each row. Designs that take out the 64-bit index
+// arithmetic or change the access pattern (a thread per quad of samples,
+// four outputs per thread, a warp per row staged with cp.async or held in
+// registers) were measured against this one on the card and none was faster
+// in isolation or in the render (PERF.md), so this design stays.
 
 #include <cuda_runtime.h>
 
@@ -39,14 +45,14 @@ remap_kernel(const int* __restrict__ a, const float* __restrict__ vals,
 
 }  // namespace
 
-// a (G, NS) int32; vals (G, C, K) f32; out (G, C, NS) f32. Returns the
+// a (G, NS) int32; vals (G, C, K) f32; out (G, C, NS) f32. `blocks` of 256
+// threads come from the wrapper's launch_geometry. Returns the
 // cudaGetLastError() code of the launch.
 extern "C" int remap_anchors_launch(const void* a, const void* vals, void* out,
                                     int G, int C, int NS, int K,
-                                    void* stream) {
+                                    long long blocks, void* stream) {
   const long long total = static_cast<long long>(G) * C * NS;
   if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
   remap_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(a), static_cast<const float*>(vals),

@@ -23,6 +23,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diner_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# dynamic shared memory one block may use on Hopper (227 KB); a launch above
+# 48 KB opts in with cudaFuncSetAttribute
+MAX_SHARED_BYTES = 232_448
 
 
 def _nvcc() -> str:

@@ -3,8 +3,8 @@
 Replaces the TPU kernel `likelihood_from_chord`
 (diner_tpu/sampler/pallas_likelihood.py:225-276, kernel `_chord_kernel`
 142-222). The CUDA kernel is `csrc/chord.cu`, whose header gives its design
-and its bound on the H100: memory-bound, about 133 MB or 40 us per chunk at
-the fast preset's shapes.
+and what bounds it on the H100: about 133 MB or 40 us of bytes per chunk at
+the fast preset's shapes, and the instructions of its per-candidate work.
 
 The wrapper dispatches on the tensors' device: a CPU tensor runs the plain
 PyTorch version, a CUDA tensor launches the kernel. It computes the true erf
@@ -22,24 +22,38 @@ import math
 
 import torch
 
-from diner_tpu_torch.kernels.build import CudaKernel
+from diner_tpu_torch.kernels.build import MAX_SHARED_BYTES, CudaKernel
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 KERNEL = CudaKernel("chord", "likelihood_from_chord_launch",
-                    [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                     _P])
-# the NV anchor tables and scalars of one ray stay under the 48 KB of shared
-# memory a launch gets without opting in
-MAX_SHARED_FLOATS = 12 * 1024
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+                     _I, _I, _P])
 N_SCALARS = 8   # [w0, w1, P0, P1, inv_dd, dd_ok, chord_ok, half_step]
+MAX_THREADS = 256
 
 
-def likelihood_from_chord_plain(z, scal, vals, n_anchors: int,
-                                depth_diff_max: float,
-                                return_ids: bool = False):
-    """The same function in plain PyTorch, on any device."""
-    A = n_anchors
+def launch_geometry(SB: int, NV: int, NR: int, NC: int, A: int):
+    """(blocks, threads, dynamic shared memory bytes) of one launch: a block
+    per ray, a thread per quad of candidates (a multiple of 32, at most 256),
+    and each view's 8 scalars and (depth, 1 / (sqrt2 std)) anchor table in
+    shared memory. Raises ValueError where that table exceeds what a block
+    may use."""
+    if A <= 0:
+        raise ValueError(f"n_anchors must be positive, got {A}")
+    smem = 4 * NV * (N_SCALARS + 2 * A)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"NV={NV} views of A={A} anchors need {smem} bytes "
+                         f"of shared memory, above the {MAX_SHARED_BYTES} a "
+                         f"block may use")
+    quads = -(-NC // 4)
+    threads = min(MAX_THREADS, max(32, -(-quads // 32) * 32))
+    return SB * NR, threads, smem
+
+
+def _select(z, scal, vals, A: int, depth_diff_max: float):
+    """Cam depths zc, half steps, anchor ids, the selected anchors' depth
+    and std, and the gate, each (SB, NV, NR, NC) (hs (SB, NV, NR, 1))."""
     zz = z[:, None]                                        # (SB, 1, NR, NC)
     w0, w1, P0, P1, inv_dd, dd_ok, chord_ok, hs = (
         scal[..., i:i + 1] for i in range(N_SCALARS))      # (SB, NV, NR, 1)
@@ -55,6 +69,22 @@ def likelihood_from_chord_plain(z, scal, vals, n_anchors: int,
     d, std, cos = sel.unbind(3)
     valid = (front & (cos <= 0) & ((d - zc).abs() < depth_diff_max)
              & (std != 0))
+    return zc, hs, a, d, std, valid
+
+
+def chord_gate(z, scal, vals, n_anchors: int, depth_diff_max: float):
+    """(SB, NV, NR, NC) bool: where a candidate passes every gate (in front,
+    cos <= 0, std != 0, |d - zc| < depth_diff_max) and gets its erf mass;
+    elsewhere p is 0 and the kernel skips both erf."""
+    return _select(z, scal, vals, n_anchors, depth_diff_max)[-1]
+
+
+def likelihood_from_chord_plain(z, scal, vals, n_anchors: int,
+                                depth_diff_max: float,
+                                return_ids: bool = False):
+    """The same function in plain PyTorch, on any device."""
+    zc, hs, a, d, std, valid = _select(z, scal, vals, n_anchors,
+                                       depth_diff_max)
     sstd = torch.where(std == 0, torch.ones_like(std), std) * math.sqrt(2.0)
     hi = torch.erf((zc + hs - d) / sstd)
     lo = torch.erf((zc - hs - d) / sstd)
@@ -101,9 +131,7 @@ def likelihood_from_chord(z, scal, vals, n_anchors: int,
         raise ValueError(f"unsupported device {z.device}")
     SB, NR, NC = z.shape
     NV, A = scal.shape[1], n_anchors
-    if A <= 0 or NV * (N_SCALARS + 3 * A) > MAX_SHARED_FLOATS:
-        raise ValueError(f"NV={NV} views of A={A} anchors exceed the "
-                         f"{MAX_SHARED_FLOATS} floats of shared memory")
+    _, threads, smem = launch_geometry(SB, NV, NR, NC, A)
     z, scal, vals = (t.contiguous() for t in (z, scal, vals))
     p = torch.empty((SB, NV, NR, NC), dtype=torch.float32, device=z.device)
     ids = (torch.empty((SB, NV, NR, NC), dtype=torch.int32, device=z.device)
@@ -112,5 +140,6 @@ def likelihood_from_chord(z, scal, vals, n_anchors: int,
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(z.data_ptr(), scal.data_ptr(), vals.data_ptr(),
                       p.data_ptr(), None if ids is None else ids.data_ptr(),
-                      SB, NV, NR, NC, A, float(depth_diff_max), stream)
+                      SB, NV, NR, NC, A, float(depth_diff_max), threads,
+                      smem, stream)
     return (p, ids) if return_ids else p

@@ -19,9 +19,17 @@ import torch
 from diner_tpu_torch.kernels.build import CudaKernel
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 KERNEL = CudaKernel("remap", "remap_anchors_launch",
-                    [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, _P])
+                    [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _P])
+THREADS = 256
+
+
+def launch_geometry(G: int, C: int, NS: int):
+    """(blocks, threads, dynamic shared memory bytes) of one launch: a
+    thread per output of the G x C x NS, 256 threads a block, no shared
+    memory."""
+    return max(1, -(-G * C * NS // THREADS)), THREADS, 0
 
 
 def remap_anchors_plain(a, vals):
@@ -50,10 +58,11 @@ def remap_anchors(a, vals):
     _, C, K = vals.shape
     if K == 0:
         raise ValueError("vals has no anchors")
+    blocks = launch_geometry(G, C, NS)[0]
     a, vals = a.contiguous(), vals.contiguous()
     out = torch.empty((G, C, NS), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(a.data_ptr(), vals.data_ptr(), out.data_ptr(), G, C,
-                      NS, K, stream)
+                      NS, K, blocks, stream)
     return out

@@ -1,11 +1,13 @@
 """Where the time of one full-width request goes, on the card.
 
     python -m diner_tpu_torch.profile_serve [--requests N] [--json PATH]
+        [--likelihood {v1,chord}]
 
 Builds the RenderServer of chip_smoke.py's serve phase (the fast DTU preset
 from configs/evaluate_diner_on_dtu_fast.yaml, random weights from seed 0, a
-synthetic 4-view 256x320 scene), warms it up with one request, then runs N
-requests under torch.profiler. Prints the card, each request's wall time,
+synthetic 4-view 256x320 scene) on the given likelihood route (the preset's
+"v1", kernel K1, or "chord", kernel K3), warms it up with one request, then
+runs N requests under torch.profiler. Prints the card, each request's wall time,
 the device-busy share (the summed device time of all kernels over the wall
 time), and the operators and the kernels by device time; --json also writes
 them to PATH. Needs a CUDA device.
@@ -14,6 +16,7 @@ them to PATH. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -29,6 +32,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--json", default=None)
+    ap.add_argument("--likelihood", choices=("v1", "chord"), default="v1")
     args = ap.parse_args(argv)
 
     import torch
@@ -50,6 +54,7 @@ def main(argv=None) -> int:
     s = ds[0]
     server = RenderServer.from_preset(PRESET, None, ds.znear, ds.zfar,
                                       buckets=((H, W),))
+    server.cfg = dataclasses.replace(server.cfg, likelihood=args.likelihood)
     server.load_scene("scene0", *(s[k][None] for k in (
         "src_rgbs", "src_depths", "src_depth_stds", "src_extrinsics",
         "src_intrinsics")))
@@ -84,6 +89,7 @@ def main(argv=None) -> int:
     wall_s = sum(wall)
     n = args.requests
     print(card)
+    print(f"likelihood route {args.likelihood}")
     print(f"requests {[round(w, 4) for w in wall]} s at {H}x{W} "
           f"(profiler on); device busy {busy_us / 1e6:.4f} s of "
           f"{wall_s:.4f} s = {busy_us / 1e6 / wall_s:.3f}")
@@ -94,7 +100,8 @@ def main(argv=None) -> int:
                   f"{count / n:7.1f}  {key[:100]}")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"card": card, "requests_s": wall,
+            json.dump({"card": card, "likelihood": args.likelihood,
+                       "requests_s": wall,
                        "device_busy_s": busy_us / 1e6,
                        **{title: [{"name": k, "device_ms_per_request":
                                    us / 1e3 / n, "calls_per_request": c / n}

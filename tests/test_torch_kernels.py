@@ -20,13 +20,16 @@ import pytest
 import torch
 from scipy.special import erf as scipy_erf
 
-from diner_tpu_torch.kernels import (KERNELS, composite_rays,
+from diner_tpu_torch.kernels import (KERNELS, chord, composite_rays,
                                      composite_rays_plain,
                                      likelihood_from_anchors,
                                      likelihood_from_anchors_plain,
                                      likelihood_from_chord,
-                                     likelihood_from_chord_plain,
+                                     likelihood_from_chord_plain, remap,
                                      remap_anchors, remap_anchors_plain)
+from diner_tpu_torch.kernels.build import MAX_SHARED_BYTES
+from diner_tpu_torch.kernels.cases import (EDGE_STDS, chord_inputs,
+                                           max_abs_diff, with_edge_cases)
 
 
 REPO = Path(__file__).resolve().parent.parent
@@ -49,35 +52,6 @@ def k1_inputs(seed, G, A, NC):
     z_cam = rng.rand(G, NC).astype(np.float32) * 2.0 + 1.0
     half_step = rng.rand(G, 1).astype(np.float32) * 0.01 + 0.001
     return a, vals, z_cam, half_step
-
-
-def chord_inputs(seed, SB, NV, NR, NC, A):
-    """K3 inputs: sorted candidates in [1, 3]; chords whose parameter t(z)
-    runs from about 0 to about 1 (P0 = dd w0 c0 and P1 = dd w1 c1 make t a
-    weighted mean of c0 ~ 0 and c1 ~ 1); a few rays behind the camera, with
-    dd_ok = 0 or chord_ok = 0; anchor depths along each chord's cam-depth
-    range, so that both sides of every gate occur."""
-    rng = np.random.RandomState(seed)
-    z = np.sort(rng.uniform(1.0, 3.0, (SB, NR, NC)), -1).astype(np.float32)
-    w0 = rng.uniform(0.5, 2.0, (SB, NV, NR))
-    w1 = rng.uniform(0.3, 1.0, (SB, NV, NR))
-    w0[:, :, :2] = -3.0
-    dd = rng.uniform(0.05, 2.0, (SB, NV, NR))
-    c0 = rng.uniform(-0.1, 0.1, (SB, NV, NR))
-    c1 = rng.uniform(0.9, 1.1, (SB, NV, NR))
-    hs = rng.uniform(0.001, 0.01, (SB, 1, NR)).repeat(NV, 1)
-    scal = np.stack([w0, w1, dd * w0 * c0, dd * w1 * c1, 1.0 / dd,
-                     rng.rand(SB, NV, NR) > 0.1, rng.rand(SB, NV, NR) > 0.1,
-                     hs], -1).astype(np.float32)
-    zc0, zc1 = (w0 + 1.0 * w1)[..., None], (w0 + 3.0 * w1)[..., None]
-    frac = (np.arange(A) + 0.5) / A
-    depth = zc0 + frac * (zc1 - zc0) + rng.uniform(-0.02, 0.02,
-                                                   (SB, NV, NR, A))
-    std = rng.uniform(0.0, 0.05, (SB, NV, NR, A))
-    std[rng.rand(SB, NV, NR, A) < 0.2] = 0.0
-    cos = rng.rand(SB, NV, NR, A) - 0.7
-    vals = np.stack([depth, std, cos], 3).astype(np.float32)
-    return z, scal, vals
 
 
 def composite_inputs(seed, SB, B, K):
@@ -154,6 +128,84 @@ def test_chord_plain_matches_numpy_oracle():
     np.testing.assert_allclose(p.numpy(), ref, atol=2e-6)
     assert torch.equal(p, likelihood_from_chord_plain(
         _t(z), _t(scal), _t(vals), A, ddm))
+
+
+def chord_kernel_model(z, scal, vals, A, ddm):
+    """csrc/chord.cu's arithmetic in float32 torch: the chord arithmetic and
+    anchor id as the plain version rounds them; per anchor r = 1 / (sqrt2
+    std) where cos <= 0 and std != 0, else 0, kept finite (+-FLT_MAX) where
+    it overflows; the gate r != 0, in front, |d - zc| < ddm; the erf
+    arguments (zc +- hs - d) * r."""
+    zz = z[:, None]
+    w0, w1, P0, P1, inv_dd, dd_ok, chord_ok, hs = (
+        scal[..., i:i + 1] for i in range(8))
+    zc = w0 + zz * w1
+    zc_safe = torch.where(zc.abs() > 1e-9, zc, torch.ones_like(zc))
+    t = (P0 + zz * P1) * inv_dd / zc_safe
+    s = torch.where(dd_ok > 0, t, torch.full_like(t, 0.5)).nan_to_num(0.0)
+    a = (s.clamp(0.0, 1.0) * A).to(torch.int32).clamp(0, A - 1)
+    d, std, cos = vals.unbind(3)
+    r = torch.where((cos <= 0) & (std != 0), 1.0 / (std * math.sqrt(2.0)),
+                    torch.zeros_like(std))
+    big = torch.finfo(torch.float32).max
+    r = torch.where(r.isinf(), torch.copysign(torch.full_like(r, big), r), r)
+    de, re = (torch.gather(x, 3, a.long()) for x in (d, r))
+    gate = (chord_ok > 0) & (zc > 1e-9) & (re != 0) & ((de - zc).abs() < ddm)
+    hi = torch.erf((zc + hs - de) * re)
+    lo = torch.erf((zc - hs - de) * re)
+    return torch.where(gate, 0.5 * (hi - lo).abs(), torch.zeros_like(hi)), a
+
+
+@pytest.mark.parametrize("NV,A", [(1, 8), (3, 32)])
+def test_chord_kernel_arithmetic_matches_plain(NV, A):
+    """K3's arithmetic (products by a per-anchor 1 / (sqrt2 std), the r == 0
+    gate) against the plain version on the CPU, with std 0, -0, tiny
+    (normal and subnormal), negative, +-inf, NaN and overflowing, and cos
+    > 0, 0, -0 and NaN: ids equal, p within 2e-6 and NaN exactly where the
+    plain version's p is NaN."""
+    z, scal, vals = chord_inputs(12, 2, NV, 64, 97, A)
+    z, scal, vals = (_t(x) for x in (z, scal, with_edge_cases(vals, NV)))
+    ddm = 0.05
+    p, ids = chord_kernel_model(z, scal, vals, A, ddm)
+    p_ref, ids_ref = likelihood_from_chord_plain(z, scal, vals, A, ddm,
+                                                 return_ids=True)
+    assert torch.equal(ids, ids_ref)
+    assert max_abs_diff(p, p_ref) <= 2e-6
+    # the edge values reach the gate: selected NaN stds give NaN p, tiny
+    # ones a saturated erf, and every edge std is selected somewhere
+    assert p_ref.isnan().any() and (p_ref == 1.0).any()
+    gate = chord.chord_gate(z, scal, vals, A, ddm)
+    sel_std = torch.gather(vals[:, :, :, 1], 3, ids_ref.long())
+    for e in EDGE_STDS:
+        hit = sel_std.isnan() if math.isnan(e) else sel_std == e
+        assert hit.any(), e
+    assert gate.any() and not gate.all()
+
+
+def test_chord_launch_geometry():
+    """K3's launch geometry and shared memory from its wrapper's pure-Python
+    helper: a block per ray, a thread per quad of candidates, NV x (8 + 2A)
+    floats staged a ray, so NV = 4 takes A = 1,024 (and up to 7,260) and is
+    refused beyond 227 KB."""
+    assert chord.launch_geometry(1, 4, 4096, 1000, 256) == (4096, 256, 8320)
+    blocks, threads, smem = chord.launch_geometry(2, 4, 37, 997, 1024)
+    assert (blocks, threads, smem) == (74, 256, 32896)
+    assert chord.launch_geometry(1, 3, 5, 80, 8)[1:] == (32, 288)
+    assert chord.launch_geometry(1, 4, 1, 8, 7260)[2] <= MAX_SHARED_BYTES
+    for bad in ((1, 4, 1, 8, 7261), (1, 4, 1, 8, 0), (1, 16, 1, 8, 2048)):
+        with pytest.raises(ValueError):
+            chord.launch_geometry(*bad)
+
+
+def test_remap_launch_geometry():
+    """K2's launch geometry from its wrapper's pure-Python helper: a thread
+    per output of the G x C x NS, 256 threads a block, no shared memory;
+    past 32 bits of outputs too (the kernel indexes in 64 bits)."""
+    assert remap.launch_geometry(16384, 1, 32) == (2048, 256, 0)
+    assert remap.launch_geometry(1001, 5, 45) == (880, 256, 0)
+    assert remap.launch_geometry(1001, 1, 7) == (28, 256, 0)
+    assert remap.launch_geometry(0, 1, 32) == (1, 256, 0)
+    assert remap.launch_geometry(2 ** 21, 1, 1024)[0] == 2 ** 23
 
 
 def test_composite_plain_matches_numpy_oracle():
@@ -282,6 +334,44 @@ def test_chord_kernel_matches_plain_on_card(cuda):
     assert torch.equal(ids, ids_ref)
     assert (p > 0).any()
     assert (p - p_ref).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NV,A", [(1, 8), (1, 1024), (3, 8), (3, 1024)])
+def test_chord_kernel_ragged_on_card(cuda, NV, A):
+    """Kernel vs plain version on the card at NC = 997 (scalar z, p and ids),
+    SB = 2, with std and cos at the gates' edges: bitwise ids; p within 2e-6
+    and NaN where the plain version's p is NaN."""
+    z, scal, vals = chord_inputs(13, 2, NV, 37, 997, A)
+    z, scal, vals = (_t(x).to(cuda)
+                     for x in (z, scal, with_edge_cases(vals, A)))
+    before = KERNELS["likelihood_from_chord"].launches
+    p, ids = likelihood_from_chord(z, scal, vals, A, 0.05, return_ids=True)
+    p_ref, ids_ref = likelihood_from_chord_plain(z, scal, vals, A, 0.05,
+                                                 return_ids=True)
+    torch.cuda.synchronize()
+    assert KERNELS["likelihood_from_chord"].launches == before + 1
+    assert torch.equal(ids, ids_ref)
+    assert max_abs_diff(p, p_ref) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NS", [7, 32, 45])
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("K", [6, 256])
+def test_remap_kernel_ragged_on_card(cuda, NS, C, K):
+    """Bitwise on the card with NS below, at and above a warp, C > 1, K not
+    a multiple of 4 and G = 1001, whose outputs do not fill the last
+    block's threads."""
+    rng = np.random.RandomState(NS * C + K)
+    G = 1001
+    assert G * C * NS % remap.launch_geometry(G, C, NS)[1] != 0
+    vals = _t(rng.rand(G, C, K).astype(np.float32)).to(cuda)
+    a = _t(np.sort(rng.randint(0, K, (G, NS)), -1).astype(np.int32)).to(cuda)
+    before = KERNELS["remap_anchors"].launches
+    out = remap_anchors(a, vals)
+    assert KERNELS["remap_anchors"].launches == before + 1
+    assert torch.equal(out, remap_anchors_plain(a, vals))
 
 
 @pytest.mark.cuda
