@@ -26,6 +26,12 @@ last line:
      background off and on; also at ragged shapes (SB 2, B 1001, K 1, 5,
      37, 40 and 64, and each first row alone); times, and an empty launch's
      time on the same timer;
+  6b. K4's backward (composite_rays_backward) at the training shape (SB 4,
+     B 4096, K 40) vs the gradient of the plain version by autograd, within
+     1e-5 + 1e-4 |plain|, white background off and on, about one sigma in 8
+     exactly 0 (the relu tie); also at ragged shapes (SB 2, B 1001, K 1, 5,
+     37, 40 and 64: a partial last block); through the autograd Function
+     too; times;
   7. serving at full width: RenderServer.from_preset(configs/
      evaluate_diner_on_dtu_fast.yaml) (ResNet34 + batch norm, ResnetFC
      512x5, bf16, int8 quad latent, A=256 paired anchors, 1000 candidates
@@ -45,8 +51,18 @@ last line:
   10. bulk eval: the random fast-DTU model goes through to_lightning and
      torch.save, and cli/render_eval renders and scores two synthetic 4-view
      256x320 scenes from that checkpoint: 8 PNGs, finite scores;
+  10b. training at full width: cli/train on configs/train_dtu.yaml's nerf,
+     renderer and optimizer sections (ResNet34 + group norm, ResnetFC
+     512x5 f32, 40 samples from 1000 candidates, VGG 0.1 and antibias 1.0
+     on 64x64 patches, Adam at 1e-4) on synthetic 4-view 256x320 scenes,
+     batch 4: 8 steps, a save, a resume for 2 more, then render_eval --ckpt
+     on one val image. Each step must launch K4 and its backward once and
+     K1-K3 never; every loss finite; the checkpoint reloads bitwise; the
+     resumed run ends at step 10. Prints steps/s, s/step after warm-up and
+     the peak memory;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
-     route (phase 7), error and times (K4's entry also the empty launch's);
+     route (phase 7; K4's backward: phase 10b), error and times (K4's entry
+     also the empty launch's);
   12. the last line {"ok": true, "device": {...}}.
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -79,6 +95,11 @@ K3_OPS_ERF = 40
 # K4 per sample: delta, alpha with one expf (~12), the scan step, the
 # weight, and four multiply-adds
 K4_OPS_PER_SAMPLE = 25
+# K4's backward per sample: the forward's delta and expf (~12), v (9),
+# dalpha/dsigma (2), two scan steps of the forward product (5 steps) and
+# the reverse affine maps (5 steps, 3 operations each), S, g_alpha,
+# g_sigma and the three g_rgb
+K4_BWD_OPS_PER_SAMPLE = 45
 
 H, W, NV = 256, 320, 4   # the DTU evaluation image and its source views
 FACESCAPE_HW = (256, 256)
@@ -89,6 +110,13 @@ N_REQUESTS = 3           # on the v1 route; the chord route and FaceScape: 2
 QUALITY_SEEDS = 16
 NR = 4096                # rays per chunk of the preset
 G, NC, A, NS = 1 * NV * NR, 1000, 256, 32   # one chunk of the preset
+TRAIN_CONFIG = ROOT / "configs" / "train_dtu.yaml"
+# a training step of train_dtu.yaml: SB scenes, one 64x64 patch each,
+# 40 samples a ray
+TRAIN_SB, TRAIN_K = 4, 40
+TRAIN_B = 64 * 64
+TRAIN_STEPS, RESUME_STEPS = 8, 2
+TRAIN_REMAT = False      # remat_field off: batch 4 fits in 80 GB
 
 
 class SmokeFailure(Exception):
@@ -383,6 +411,80 @@ def phase_k4(flush):
                 library_ms=None, empty_ms=empty_ms)
 
 
+def phase_k4_backward(flush):
+    import torch
+
+    from diner_tpu_torch.kernels import (KERNELS, composite_rays,
+                                         composite_rays_backward,
+                                         composite_rays_backward_plain)
+    from diner_tpu_torch.kernels.cases import composite_grad_inputs
+    from diner_tpu_torch.kernels.composite import BACKWARD_THREADS
+
+    def on_card(seed, SB, B, K):
+        return [torch.from_numpy(x).cuda()
+                for x in composite_grad_inputs(seed, SB, B, K)]
+
+    def compare(rays, z, field, *grads):
+        err = 0.0
+        for white in (False, True):
+            got = composite_rays_backward(rays, z, field, *grads, white)
+            ref = composite_rays_backward_plain(rays, z, field, *grads,
+                                                white)
+            torch.cuda.synchronize()
+            e = (got - ref).abs()
+            err = max(err, e.max().item())
+            check(bool((e <= 1e-5 + 1e-4 * ref.abs()).all()),
+                  f"K4 backward (white_bkgd={white}) at {tuple(z.shape)} "
+                  f"differs by {e.max().item()}")
+        return err
+
+    SB, B, K = TRAIN_SB, TRAIN_B, TRAIN_K
+    inputs = on_card(5, SB, B, K)
+    err = compare(*inputs)
+    log(f"K4 backward composite_rays_backward SB={SB} B={B} K={K}: g_field "
+        f"within 1e-5 + 1e-4 |plain| of autograd through the plain version "
+        f"(scans in another order), max abs diff {err:.3e}, white "
+        f"background off and on, 1 sigma in 8 exactly 0")
+    ragged = (1, 5, 37, 40, 64)
+    check(2 * 1001 % (BACKWARD_THREADS // 32) != 0,
+          "the rays fill the last block")
+    errs = [compare(*on_card(50 + k, 2, 1001, k)) for k in ragged]
+    log(f"K4 backward ragged SB=2 B=1001 K in {ragged}: within 1e-5 + 1e-4 "
+        f"|plain|, max abs diff {max(errs):.3e}")
+    # through the autograd Function: one forward and one backward launch
+    rays, z, field, g_rgb, g_depth, g_acc = inputs
+    before = (KERNELS["composite_rays"].launches,
+              KERNELS["composite_rays_backward"].launches)
+    leaf = field.clone().requires_grad_(True)
+    outs = composite_rays(rays, z, leaf)
+    torch.autograd.backward(outs, (g_rgb, g_depth, g_acc))
+    torch.cuda.synchronize()
+    check((KERNELS["composite_rays"].launches,
+           KERNELS["composite_rays_backward"].launches)
+          == (before[0] + 1, before[1] + 1),
+          "composite_rays with grad did not launch K4 and its backward once")
+    check(torch.equal(leaf.grad, composite_rays_backward(
+        rays, z, field, g_rgb, g_depth, g_acc)),
+        "the Function's gradient differs from the backward kernel's")
+    log("K4 backward through autograd (CompositeFunction): one forward and "
+        "one backward launch, gradient bitwise the kernel's")
+
+    ms = time_ms(lambda: composite_rays_backward(*inputs), flush)
+    plain_ms = time_ms(lambda: composite_rays_backward_plain(*inputs), flush)
+    n = SB * B * K
+    n_bytes = 4 * (n + 4 * n + SB * B * (1 + 5) + 4 * n)
+    bound_ms, bound_by = bound(n_bytes, K4_BWD_OPS_PER_SAMPLE * n)
+    log(f"K4 backward time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.2f} MB)")
+    return dict(name="composite_rays_backward", route="cuda",
+                source="diner_tpu_torch/csrc/composite_bwd.cu",
+                replaces="diner_tpu/renderer/pallas_composite.py:76",
+                max_abs_err=max([err] + errs), ms=ms, kernel_ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None,
+                gradient_of="jax.grad of diner_tpu/renderer/composite.py:25")
+
+
 def _serve_requests(server, scene, H, W, seeds, expected, label, card):
     """Requests with every kernel count set to 0 just before and read just
     after each; each must launch exactly `expected` kernels. Returns the
@@ -457,14 +559,14 @@ def phase_serve(card):
     v1, rgb_v1 = _serve_requests(
         server, scene, H, W, range(N_REQUESTS),
         {"likelihood_from_anchors": chunks, "remap_anchors": chunks,
-         "likelihood_from_chord": 0, "composite_rays": chunks},
-        "serve v1", card)
+         "likelihood_from_chord": 0, "composite_rays": chunks,
+         "composite_rays_backward": 0}, "serve v1", card)
     server.cfg = dataclasses.replace(server.cfg, likelihood="chord")
     chord, rgb_chord = _serve_requests(
         server, scene, H, W, range(2),
         {"likelihood_from_anchors": 0, "remap_anchors": chunks,
-         "likelihood_from_chord": chunks, "composite_rays": chunks},
-        "serve chord", card)
+         "likelihood_from_chord": chunks, "composite_rays": chunks,
+         "composite_rays_backward": 0}, "serve chord", card)
     a, b = rgb_v1.cpu().numpy(), rgb_chord.cpu().numpy()
     agree = -10.0 * np.log10(max(float(np.mean((a - b) ** 2)), 1e-20))
     log(f"serve: request 0 on the chord route vs the v1 route (same seed, "
@@ -481,7 +583,8 @@ def phase_facescape(card):
     _serve_requests(server, scene, *FACESCAPE_HW, range(2),
                     {"likelihood_from_anchors": chunks,
                      "remap_anchors": chunks, "likelihood_from_chord": 0,
-                     "composite_rays": chunks}, "serve facescape", card)
+                     "composite_rays": chunks,
+                     "composite_rays_backward": 0}, "serve facescape", card)
 
 
 def _fixture():
@@ -502,6 +605,21 @@ def _fixture():
 
 
 def phase_quality():
+    import torch
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("quality: TF32 off for convolutions and matmuls in this phase")
+    try:
+        _quality_renders()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _quality_renders():
     import numpy as np
     import torch
 
@@ -509,9 +627,6 @@ def phase_quality():
     from diner_tpu_torch.data import SyntheticSphereDataset, collate
     from diner_tpu_torch.models import DINER, PixelNeRF, from_jax
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log("quality: TF32 off for convolutions and matmuls in this phase")
     params, meta = _fixture()
     sd = from_jax(params)
     h, w = 128, 160   # the held-out scene of test_fastpath_regression.py
@@ -616,8 +731,143 @@ def phase_eval(card):
           f"eval scores not finite: {scores}")
     check(launches == {"likelihood_from_anchors": chunks,
                        "remap_anchors": chunks, "likelihood_from_chord": 0,
-                       "composite_rays": chunks},
+                       "composite_rays": chunks,
+                       "composite_rays_backward": 0},
           f"eval launches {launches}, expected {chunks} of K1, K2, K4")
+
+
+def _train_config(tmp: Path, batch_size: int) -> Path:
+    """train_dtu.yaml with its data on synthetic 4-view 256x320 scenes and
+    no validation in the loop; nerf, renderer and optimizer as they are."""
+    import yaml
+
+    from diner_tpu_torch.core.config import load_config
+
+    conf = load_config(TRAIN_CONFIG)
+    # 32 scenes: the 8 steps are one epoch at batch 4, so that no timed step
+    # waits for the loader to start an epoch (the first batch of an epoch
+    # is not prefetched)
+    data = {"module": "SyntheticSphereDataset",
+            "kwargs": {"n_scenes": 32, "n_views": NV, "H": H, "W": W,
+                       "seed": 0}}
+    conf["data"] = {
+        "train": {"dataset": data, "dataloader": {"kwargs": {
+            "batch_size": batch_size, "shuffle": True, "num_workers": 4}}},
+        "val": {"dataset": dict(data, kwargs=dict(data["kwargs"],
+                                                  n_scenes=1, seed=7))}}
+    conf["trainer"] = {"kwargs": {"max_steps": TRAIN_STEPS,
+                                  "val_check_interval": None}}
+    if TRAIN_REMAT:
+        conf["nerf"]["kwargs"]["remat_field"] = True
+    path = tmp / "train.yaml"
+    path.write_text(yaml.safe_dump(conf))
+    return path
+
+
+def phase_train(card):
+    """cli/train at train_dtu.yaml's widths; returns K4's backward
+    launches of the run."""
+    import numpy as np
+    import torch
+
+    from diner_tpu_torch.cli import render_eval
+    from diner_tpu_torch.cli import train as train_cli
+    from diner_tpu_torch.kernels import KERNELS
+
+    log(f"train: TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, TF32 "
+        f"cuDNN {torch.backends.cudnn.allow_tf32}, "
+        f"remat_field {TRAIN_REMAT}, batch {TRAIN_SB}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = _train_config(tmp, TRAIN_SB)
+        run = tmp / "run"
+        for k in KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state = train_cli.main([str(cfg), "--run-dir", str(run),
+                                "--log-every", "1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        check(launches == {"likelihood_from_anchors": 0, "remap_anchors": 0,
+                           "likelihood_from_chord": 0,
+                           "composite_rays": TRAIN_STEPS,
+                           "composite_rays_backward": TRAIN_STEPS},
+              f"train launches {launches}, expected one K4 and one K4 "
+              f"backward a step")
+        lines = [json.loads(x) for x in
+                 (run / "metrics.jsonl").read_text().splitlines()]
+        check([x["step"] for x in lines] == list(range(TRAIN_STEPS)),
+              f"metrics steps {[x['step'] for x in lines]}")
+        for x in lines:
+            check(all(np.isfinite(v) for v in x.values()),
+                  f"non-finite metrics {x}")
+            check(x["skipped_nonfinite"] == 0.0, f"skipped step {x}")
+        s_step = [1.0 / x["steps_per_sec"] for x in lines]
+        steady = statistics.median(s_step[2:])
+        log(f"train: {TRAIN_STEPS} steps in {seconds:.2f} s with set-up; "
+            f"totals {[round(x['total'], 5) for x in lines]}")
+        log(f"train: s/step {[round(v, 4) for v in s_step]}; after warm-up "
+            f"(steps 2-{TRAIN_STEPS - 1}) median {steady:.4f} s/step = "
+            f"{1.0 / steady:.3f} steps/s; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated) [{card}]")
+
+        ckpt = run / "ckpts" / f"step_{TRAIN_STEPS:08d}.pt"
+        payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+        own = state.model.nerf.state_dict()
+        check(payload["step"] == TRAIN_STEPS and payload["nerf"].keys()
+              == own.keys() and all(torch.equal(payload["nerf"][k], v.cpu())
+                                    for k, v in own.items()),
+              "the checkpoint does not reload the model bitwise")
+        opt = state.optimizer.state_dict()["state"]
+        check(all(torch.equal(payload["optimizer"]["state"][i][n], t.cpu())
+                  for i, st in opt.items() for n, t in st.items()),
+              "the checkpoint does not reload Adam's state bitwise")
+        log(f"train: checkpoint {ckpt.name} reloads the parameters, norm "
+            f"buffers and Adam's state bitwise")
+
+        state = train_cli.main([str(cfg), "--run-dir", str(run), "--resume",
+                                "--max-steps",
+                                str(TRAIN_STEPS + RESUME_STEPS),
+                                "--log-every", "1"])
+        torch.cuda.synchronize()
+        done = TRAIN_STEPS + RESUME_STEPS
+        adam_step = {float(st["step"]) for st in
+                     state.optimizer.state_dict()["state"].values()}
+        check(state.step == done and adam_step == {float(done)}
+              and state.scheduler.last_epoch == done,
+              f"resumed run ends at step {state.step}, Adam {adam_step}, "
+              f"schedule {state.scheduler.last_epoch}, expected {done}")
+        check(KERNELS["composite_rays"].launches == done
+              and KERNELS["composite_rays_backward"].launches == done,
+              "the resumed steps did not launch K4 and its backward once")
+        steps = [json.loads(x)["step"] for x in
+                 (run / "metrics.jsonl").read_text().splitlines()]
+        check(steps == list(range(done)), f"metrics after resume: {steps}")
+        log(f"train: resumed from step {TRAIN_STEPS} for {RESUME_STEPS} "
+            f"steps (no step replayed), Adam and the schedule at {done}")
+        backward_launches = KERNELS["composite_rays_backward"].launches
+
+        for k in KERNELS.values():
+            k.launches = 0
+        out = tmp / "eval"
+        scores = render_eval.main(["--config", str(cfg), "--ckpt",
+                                   str(run / "ckpts"), "--out", str(out),
+                                   "--n", "1"])
+        pngs = sorted(p.name for p in (out / "visualizations").iterdir())
+        chunks = -(-H * W // 8192)
+        log(f"train: render_eval --ckpt on one val image: {pngs}, scores "
+            f"{scores}, launches "
+            f"{ {n: k.launches for n, k in KERNELS.items()} }")
+        check(len(pngs) == 4 and all(np.isfinite(v) for v in scores.values()),
+              f"render_eval --ckpt wrote {pngs}, scores {scores}")
+        check(KERNELS["composite_rays"].launches == chunks
+              and KERNELS["composite_rays_backward"].launches == 0,
+              f"render_eval launched K4 {KERNELS['composite_rays'].launches}"
+              f" times, expected {chunks}")
+    return backward_launches
 
 
 def main() -> int:
@@ -643,14 +893,15 @@ def main() -> int:
         phase_build()
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
         kernels = [phase_k1(flush), phase_k2(flush), phase_k3(flush),
-                   phase_k4(flush)]
+                   phase_k4(flush), phase_k4_backward(flush)]
         del flush
         launches = phase_serve(card)
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
         phase_facescape(card)
         phase_quality()
         phase_eval(card)
+        launches["composite_rays_backward"] = phase_train(card)
+        for k in kernels:
+            k["launches"] = launches[k["name"]]
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -659,7 +910,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # the keys every kernel has, then what a phase adds (K4's empty_ms)
+    # the keys every kernel has, then what a phase adds (K4's empty_ms, its
+    # backward's gradient_of)
     log(json.dumps({"kernels": [dict({k: kern[k] for k in keys}, **kern)
                                 for kern in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Build models and datasets from reference-shaped YAML configs (port of
 diner_tpu.cli.build).
 
-A config has `data`, `nerf` and `renderer` sections with module + kwargs
-wiring: datasets resolve against the registry, models through typed
-constructors. Registered datasets: SyntheticSphereDataset (the DTU, FaceScape
-and MultiFace readers are not ported yet).
+A config has `data`, `nerf`, `renderer` and `optimizer` sections with
+module + kwargs wiring: datasets resolve against the registry, models
+through typed constructors; the optimizer section gives the loss weights and
+patch settings. Registered datasets: SyntheticSphereDataset (the DTU,
+FaceScape and MultiFace readers are not ported yet).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict
 from diner_tpu_torch.core.config import build as registry_build
 from diner_tpu_torch.core.config import register, resolve
 from diner_tpu_torch.core.types import RenderConfig
+from diner_tpu_torch.data.loader import BatchLoader
 from diner_tpu_torch.data.synthetic import SyntheticSphereDataset
 from diner_tpu_torch.models.diner import DINER
 from diner_tpu_torch.models.pixelnerf import PixelNeRF
@@ -32,6 +34,15 @@ def build_dataset(conf: Dict[str, Any], stage: str):
     if "stage" in params:
         return registry_build(dconf, stage=stage)
     return registry_build(dconf)
+
+
+def build_loader(conf: Dict[str, Any], dataset, shuffle_default: bool,
+                 seed: int = 0) -> BatchLoader:
+    """The BatchLoader of one `data` split's `dataloader` section."""
+    kw = dict(conf.get("dataloader", {}).get("kwargs", {}))
+    return BatchLoader(dataset, batch_size=int(kw.get("batch_size", 1)),
+                       shuffle=bool(kw.get("shuffle", shuffle_default)),
+                       seed=seed, num_threads=int(kw.get("num_workers", 4)))
 
 
 def nerf_kwargs(conf: Dict[str, Any]) -> Dict[str, Any]:
@@ -89,7 +100,27 @@ def build_render_cfg(conf: Dict[str, Any]) -> RenderConfig:
 
 def build_diner(conf: Dict[str, Any], znear: float, zfar: float,
                 **nerf_overrides) -> DINER:
-    """DINER (the render half) from a whole config."""
+    """DINER from a whole config: nerf, renderer and the optimizer
+    section's loss settings."""
+    opt_kw = dict(conf.get("optimizer", {}).get("kwargs", {}))
     return DINER(nerf=build_nerf(conf["nerf"], **nerf_overrides),
                  render_cfg=build_render_cfg(conf.get("renderer", {})),
-                 znear=float(znear), zfar=float(zfar))
+                 znear=float(znear), zfar=float(zfar),
+                 ray_batch_size=int(opt_kw.get("ray_batch_size", 128)),
+                 w_vgg=float(opt_kw.get("w_vgg", 0.0)),
+                 vgg_spatch=int(opt_kw.get("vgg_spatch", 64)),
+                 w_antibias=float(opt_kw.get("w_antibias", 0.0)),
+                 antibias_downsampling=int(opt_kw.get(
+                     "antibias_downsampling", 3)),
+                 erode_fg_mask=int(opt_kw.get("erode_fg_mask", 0)))
+
+
+def optimizer_kwargs(conf: Dict[str, Any]) -> Dict[str, Any]:
+    """create_train_state's arguments from the optimizer section: lr and
+    the schedule."""
+    opt_kw = dict(conf.get("optimizer", {}).get("kwargs", {}))
+    out = {"lr": float(opt_kw.get("lr", 1e-4))}
+    out.update({k: opt_kw[k] for k in
+                ("lr_schedule", "lr_decay_steps", "lr_warmup_steps")
+                if k in opt_kw})
+    return out

@@ -2,13 +2,16 @@
 of diner_tpu.cli.render_eval).
 
     python -m diner_tpu_torch.cli.render_eval --config CONFIG.yaml \
-        --torch-ckpt MODEL.ckpt --out OUTDIR [--n N] [--nsamples K] \
-        [--device cuda|cpu]
+        (--ckpt RUN/ckpts | --torch-ckpt MODEL.ckpt) --out OUTDIR [--n N] \
+        [--nsamples K] [--device cuda|cpu]
 
-The checkpoint is a reference Lightning .ckpt (models/lightning.py maps it).
-The reference stack is BatchNorm + relu sigma (image_encoder.py:58,
-nerf_renderer.py:311), so those are forced whatever the YAML says, and the
-checkpoint's conv1 must take the 3 + border-PE channels the config implies.
+--ckpt takes a checkpoint the port's trainer wrote (a ckpts directory,
+whose latest step is used, or one step_*.pt file); the model is the
+config's as it stands. --torch-ckpt takes a reference Lightning .ckpt
+(models/lightning.py maps it). The reference stack is BatchNorm + relu
+sigma (image_encoder.py:58, nerf_renderer.py:311), so those are forced
+whatever the YAML says, and the checkpoint's conv1 must take the 3 +
+border-PE channels the config implies.
 As in the reference (create_prediction_folder.py), --n renders a
 deterministic Random(0) subset of the config's `data.val` set, --nsamples
 overrides n_samples and scales n_gaussian with it, and znear/zfar come from
@@ -29,8 +32,11 @@ REFERENCE_ARCH = {"encoder_norm": "batch", "sigma_activation": "relu"}
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", required=True)
-    ap.add_argument("--torch-ckpt", required=True,
-                    help="reference Lightning .ckpt, mapped on load")
+    which = ap.add_mutually_exclusive_group(required=True)
+    which.add_argument("--ckpt", help="a checkpoint of the port's trainer: "
+                       "its ckpts directory (latest step) or a step file")
+    which.add_argument("--torch-ckpt",
+                       help="reference Lightning .ckpt, mapped on load")
     ap.add_argument("--out", required=True)
     ap.add_argument("--n", type=int, default=None, help="eval subset size")
     ap.add_argument("--nsamples", type=int, default=None,
@@ -49,36 +55,47 @@ def main(argv=None):
     from diner_tpu_torch.models.lightning import (from_lightning,
                                                   load_torch_state_dict)
     from diner_tpu_torch.nn import posenc_dim
+    from diner_tpu_torch.train.ckpt_io import restore_latest
 
     dev = resolve_device(args.device)
     conf = load_config(args.config)
     val_set = build_dataset(conf["data"]["val"], stage="val")
-    kw = nerf_kwargs(conf["nerf"])
-    sd, extras = from_lightning(load_torch_state_dict(args.torch_ckpt),
-                                kw["backbone"], kw["encoder_layers"])
-    forced = {k: v for k, v in REFERENCE_ARCH.items()
-              if kw.get(k) != v}
-    expect_in = 3
-    if kw["image_padding"] > 0 and kw["padding_pe"] >= 0:
-        expect_in += posenc_dim(2, kw["padding_pe"], include_input=True)
-    if extras["conv1_in_channels"] != expect_in:
-        raise SystemExit(
-            f"checkpoint conv1 has {extras['conv1_in_channels']} input "
-            f"channels but the config implies {expect_in} (3 + border-PE); "
-            f"set padding_pe/image_padding to match the training run")
-    if forced:
-        print(f"--torch-ckpt forces {forced}")
-    model = build_diner(conf, znear=val_set.znear, zfar=val_set.zfar,
-                        **forced)
+    if args.ckpt:
+        payload, step = restore_latest(args.ckpt)
+        if payload is None:
+            raise SystemExit(f"no checkpoint under {args.ckpt}")
+        model = build_diner(conf, znear=val_set.znear, zfar=val_set.zfar)
+        model.nerf.load_state_dict(payload["nerf"])
+        loaded = f"checkpoint {args.ckpt} at step {step}"
+    else:
+        kw = nerf_kwargs(conf["nerf"])
+        sd, extras = from_lightning(load_torch_state_dict(args.torch_ckpt),
+                                    kw["backbone"], kw["encoder_layers"])
+        forced = {k: v for k, v in REFERENCE_ARCH.items()
+                  if kw.get(k) != v}
+        expect_in = 3
+        if kw["image_padding"] > 0 and kw["padding_pe"] >= 0:
+            expect_in += posenc_dim(2, kw["padding_pe"], include_input=True)
+        if extras["conv1_in_channels"] != expect_in:
+            raise SystemExit(
+                f"checkpoint conv1 has {extras['conv1_in_channels']} input "
+                f"channels but the config implies {expect_in} (3 + "
+                f"border-PE); set padding_pe/image_padding to match the "
+                f"training run")
+        if forced:
+            print(f"--torch-ckpt forces {forced}")
+        model = build_diner(conf, znear=val_set.znear, zfar=val_set.zfar,
+                            **forced)
+        model.nerf.load_state_dict(sd)
+        loaded = (f"reference checkpoint {args.torch_ckpt} (znear="
+                  f"{extras['znear']}, zfar={extras['zfar']})")
     if args.nsamples:
         cfg = model.render_cfg
         scale = args.nsamples / cfg.n_samples
         model.render_cfg = dataclasses.replace(
             cfg, n_samples=args.nsamples,
             n_gaussian=int(cfg.n_gaussian * scale))
-    model.nerf.load_state_dict(sd)
-    print(f"loaded reference checkpoint {args.torch_ckpt} (znear="
-          f"{extras['znear']}, zfar={extras['zfar']})")
+    print(f"loaded {loaded}")
 
     def render_fn(batch, seed):
         rgb, depth = model.render_batch(batch, seed=seed, device=dev)

@@ -1,0 +1,140 @@
+"""Train entry point (port of diner_tpu.cli.train):
+
+    python -m diner_tpu_torch.cli.train CONFIG.yaml [--run-dir DIR |
+        --logdir DIR] [--max-steps N] [--seed S] [--resume]
+        [--log-every N] [--device cuda|cpu]
+
+Builds the datasets, the loader and DINER from the config, snapshots the
+config and the git revision into the run directory, and trains (see
+train/loop.py): metrics.jsonl, checkpoints under <run>/ckpts (which
+`cli.render_eval --ckpt` renders and scores), and validation renders scored
+into <run>/eval_<step>/. Runs on the CUDA device unless --device cpu. Not
+ported yet: --multihost (training across processes) and the cam-sweep
+videos of validation; the CLI says so when a run asks for them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+
+def _resolve_val_every(val_check_interval, loader):
+    """Lightning's val_check_interval: an int is a step count, a float in
+    (0, 1] a fraction of an epoch."""
+    if not val_check_interval:
+        return None
+    if isinstance(val_check_interval, float) and 0 < val_check_interval <= 1:
+        return max(1, int(round(val_check_interval * max(len(loader), 1))))
+    return int(val_check_interval)
+
+
+def _git_revision() -> str:
+    try:
+        out = subprocess.run(["git", "rev-parse", "HEAD"],
+                             capture_output=True, text=True, timeout=30,
+                             cwd=Path(__file__).parent)
+    except OSError:
+        return ""
+    return out.stdout.strip() if out.returncode == 0 else ""
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("config")
+    ap.add_argument("--logdir", default=None,
+                    help="parent dir; a timestamped run dir is created inside")
+    ap.add_argument("--run-dir", default=None,
+                    help="exact run dir (no timestamp); with --resume it "
+                         "continues a previous invocation")
+    ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="model init, shuffling and draws")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=50,
+                    help="steps between metrics.jsonl lines")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--multihost", action="store_true",
+                    help="not ported yet: training across processes")
+    args = ap.parse_args(argv)
+    if args.multihost:
+        raise SystemExit("--multihost is not ported to diner_tpu_torch yet: "
+                         "train on one device")
+
+    import torch
+
+    from diner_tpu_torch.cli.build import (build_dataset, build_diner,
+                                           build_loader, optimizer_kwargs)
+    from diner_tpu_torch.core.config import load_config
+    from diner_tpu_torch.core.device import resolve_device
+    from diner_tpu_torch.eval.predict import create_prediction_folder
+    from diner_tpu_torch.eval.suite import evaluate_folder
+    from diner_tpu_torch.train.loop import MetricLogger, train
+
+    dev = resolve_device(args.device)
+    conf = load_config(args.config)
+    if args.run_dir:
+        logdir = Path(args.run_dir)
+    else:
+        logdir = Path(args.logdir or conf.get("logger", {}).get(
+            "kwargs", {}).get("save_dir", "outputs/run")) \
+            / time.strftime("%Y%m%d_%H%M%S")
+    logdir.mkdir(parents=True, exist_ok=True)
+    snap = logdir / "config.yaml"
+    if Path(args.config).resolve() != snap.resolve():
+        shutil.copy(args.config, snap)
+    (logdir / "GIT_REVISION").write_text(_git_revision() + "\n")
+
+    torch.manual_seed(args.seed)
+    train_set = build_dataset(conf["data"]["train"], stage="train")
+    val_set = build_dataset(conf["data"]["val"], stage="val")
+    train_loader = build_loader(conf["data"]["train"], train_set, True,
+                                seed=args.seed)
+    model = build_diner(conf, znear=train_set.znear, zfar=train_set.zfar)
+
+    trainer_kw = conf.get("trainer", {}).get("kwargs", {})
+    max_steps = args.max_steps or int(trainer_kw.get("max_steps", 100_000))
+    opt_conf = conf.get("optimizer", {}).get("kwargs", {})
+    n_score = int(opt_conf.get("n_samples_score_eval", 16))
+    if opt_conf.get("cam_sweep_settings"):
+        print("cam_sweep_settings: the cam-sweep videos are not ported to "
+              "diner_tpu_torch yet; validation renders and scores only")
+    val_logger = MetricLogger(logdir)
+
+    def val_fn(state, step):
+        eval_dir = logdir / f"eval_{step:06d}"
+
+        def render_fn(batch, seed):
+            rgb, depth = state.model.render_batch(batch, seed=seed,
+                                                  device=dev)
+            return rgb.cpu().numpy(), depth.cpu().numpy()
+
+        visdir = create_prediction_folder(render_fn, val_set,
+                                          eval_dir / "visualizations",
+                                          n_samples=n_score)
+        scores = evaluate_folder(visdir, eval_dir)
+        val_logger.log(step, {f"valscores_{k}": v for k, v in scores.items()})
+
+    opt_kw = optimizer_kwargs(conf)
+    try:
+        state = train(
+            model, train_loader, logdir, lr=opt_kw.pop("lr"),
+            opt_kwargs=opt_kw, max_steps=max_steps,
+            log_every=args.log_every,
+            ckpt_every=int(conf.get("checkpointing", {}).get("kwargs", {})
+                           .get("every_n_train_steps", 10_000)),
+            val_every=_resolve_val_every(
+                trainer_kw.get("val_check_interval"), train_loader),
+            val_fn=val_fn, resume=args.resume, seed=args.seed, device=dev)
+    finally:
+        val_logger.close()
+    print(f"training done -> {logdir}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

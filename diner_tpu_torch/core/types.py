@@ -14,6 +14,9 @@ from typing import Optional
 import torch
 
 LIKELIHOOD_ROUTES = ("v1", "chord")
+# ImageNet normalization of the encoder's and the VGG loss's inputs
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Inputs on which the kernels are held against their plain versions.
 
-chip_smoke.py and tests/test_torch_kernels.py draw K3's and K4's inputs
-here, with numpy from a seed, so that one recipe serves the card and the
-CPU; the callers move them to their device.
+chip_smoke.py and tests/test_torch_kernels.py draw the inputs of K3, K4
+and K4's backward here, with numpy from a seed, so that one recipe serves
+the card and the CPU; the callers move them to their device.
 """
 
 from __future__ import annotations
@@ -50,6 +50,19 @@ def composite_inputs(seed, SB, B, K):
     out = rng.rand(SB, B * K, 4).astype(np.float32)
     out[..., 3] = rng.randn(SB, B * K) * 4.0
     return rays, z, out
+
+
+def composite_grad_inputs(seed, SB, B, K):
+    """K4 backward inputs: composite_inputs with about one sigma in 8 set to
+    exactly 0 (the tie of relu, whose gradient is split), and upstream
+    gradients g_rgb (SB, B, 3), g_depth and g_acc (SB, B) from a normal."""
+    rays, z, out = composite_inputs(seed, SB, B, K)
+    rng = np.random.RandomState(seed + 1)
+    out[..., 3] = np.where(rng.rand(SB, B * K) < 0.125, 0.0, out[..., 3])
+    g_rgb = rng.randn(SB, B, 3).astype(np.float32)
+    g_depth = rng.randn(SB, B).astype(np.float32)
+    g_acc = rng.randn(SB, B).astype(np.float32)
+    return rays, z, out, g_rgb, g_depth, g_acc
 
 
 # std and cos values at the edges of K3's gates and of its 1 / (sqrt2 std):

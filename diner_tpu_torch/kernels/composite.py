@@ -14,10 +14,16 @@ slower on the H100; the header of `csrc/composite.cu` gives the design.
 
 `composite_outputs` is the compositing arithmetic in plain PyTorch (the
 counterpart of diner_tpu.renderer.composite.composite_outputs); it returns
-the weights, which training needs. `composite_rays` returns what the kernel
-returns, (rgb, depth, acc), and dispatches on the tensors' device: a CPU
-tensor runs the plain version, a CUDA tensor launches the kernel. The kernel
-has no backward, so off the CPU it refuses inputs that require grad.
+the weights. `composite_rays` returns what the kernel returns, (rgb, depth,
+acc), and dispatches on the tensors' device: a CPU tensor runs the plain
+version (autograd differentiates it), a CUDA tensor launches the kernel.
+Where the field's outputs require grad, the launch goes through
+`CompositeFunction`, whose backward is the kernel of `csrc/composite_bwd.cu`
+(a warp a ray, a forward product scan for the transmittance, a reverse scan
+for the suffix sums; its header gives the math). z and the rays get no
+gradient: the sampler runs under no_grad. `composite_rays_backward` and its
+plain version `composite_rays_backward_plain` (autograd through
+`composite_rays_plain`) give the gradient of the field's outputs.
 """
 
 from __future__ import annotations
@@ -33,9 +39,22 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 KERNEL = CudaKernel("composite", "composite_rays_launch",
                     [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P])
+BACKWARD = CudaKernel("composite_bwd", "composite_rays_backward_launch",
+                      [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P])
 GROUP = 16      # lanes per ray: kGroup of csrc/composite.cu
 THREADS = 128   # 8 rays a block
+BACKWARD_THREADS = 128   # a warp per ray in csrc/composite_bwd.cu: 4 a block
 MAX_BLOCKS = 2 ** 31 - 1
+
+
+def _geometry(n_rays: int, K: int, lanes: int, threads: int):
+    if K < 1:
+        raise ValueError(f"a ray needs at least one sample, got K={K}")
+    blocks = -(-n_rays * lanes // threads)
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"{n_rays} rays need {blocks} blocks, above the "
+                         f"grid's {MAX_BLOCKS}")
+    return blocks, threads, 0
 
 
 def launch_geometry(n_rays: int, K: int):
@@ -43,13 +62,13 @@ def launch_geometry(n_rays: int, K: int):
     lanes per ray, THREADS threads a block, no shared memory; no block for
     no ray. Raises ValueError for K < 1 and past the grid's 2^31 - 1
     blocks."""
-    if K < 1:
-        raise ValueError(f"a ray needs at least one sample, got K={K}")
-    blocks = -(-n_rays * GROUP // THREADS)
-    if blocks > MAX_BLOCKS:
-        raise ValueError(f"{n_rays} rays need {blocks} blocks, above the "
-                         f"grid's {MAX_BLOCKS}")
-    return blocks, THREADS, 0
+    return _geometry(n_rays, K, GROUP, THREADS)
+
+
+def backward_geometry(n_rays: int, K: int):
+    """The same for the backward kernel: a warp per ray, BACKWARD_THREADS
+    threads a block."""
+    return _geometry(n_rays, K, 32, BACKWARD_THREADS)
 
 
 def composite_outputs(rays, z_samp, out, white_bkgd: bool = False):
@@ -67,7 +86,9 @@ def composite_outputs(rays, z_samp, out, white_bkgd: bool = False):
     rgbs = out[..., :3]
     sigmas = out[..., 3]
 
-    alphas = 1.0 - torch.exp(-deltas * sigmas.clamp(min=0.0))
+    # torch.maximum, like jnp.maximum, splits a tie's gradient evenly
+    alphas = 1.0 - torch.exp(-deltas * torch.maximum(sigmas,
+                                                      sigmas.new_zeros(())))
     trans = torch.cumprod(torch.cat([torch.ones_like(alphas[..., :1]),
                                      1.0 - alphas + 1e-10], dim=-1), dim=-1)
     weights = alphas * trans[..., :-1]
@@ -105,21 +126,113 @@ def _check(rays, z_samp, field_out):
         raise ValueError(f"inputs on several devices: {devices}")
 
 
+def composite_rays_backward_plain(rays, z_samp, field_out, g_rgb, g_depth,
+                                  g_acc, white_bkgd: bool = False):
+    """The gradient of the field's outputs (SB, B*K, 4) from the upstream
+    gradients g_rgb (SB, B, 3), g_depth and g_acc (SB, B): autograd through
+    `composite_rays_plain`, on any device."""
+    with torch.enable_grad():
+        field = field_out.detach().requires_grad_(True)
+        outs = composite_rays_plain(rays.detach(), z_samp.detach(), field,
+                                    white_bkgd)
+        return torch.autograd.grad(outs, field, (g_rgb, g_depth, g_acc))[0]
+
+
+def _launch_backward(rays, z_samp, field_out, g_rgb, g_depth, g_acc,
+                     white_bkgd):
+    SB, B, K = z_samp.shape
+    blocks, threads, _ = backward_geometry(SB * B, K)
+    g_field = torch.empty((SB, B * K, 4), dtype=torch.float32,
+                          device=z_samp.device)
+    if blocks == 0:
+        return g_field
+    rays, z_samp, field_out, g_rgb, g_depth, g_acc = (
+        t.contiguous() for t in (rays, z_samp, field_out, g_rgb, g_depth,
+                                 g_acc))
+    # the kernel reads and writes the field rows with 16-byte accesses
+    if field_out.data_ptr() % 16:
+        field_out = field_out.clone()
+    with torch.cuda.device(z_samp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        BACKWARD.launch(rays.data_ptr(), z_samp.data_ptr(),
+                        field_out.data_ptr(), g_rgb.data_ptr(),
+                        g_depth.data_ptr(), g_acc.data_ptr(),
+                        g_field.data_ptr(), SB * B, K, int(white_bkgd),
+                        blocks, threads, stream)
+    return g_field
+
+
+def composite_rays_backward(rays, z_samp, field_out, g_rgb, g_depth, g_acc,
+                            white_bkgd: bool = False):
+    """The gradient of K4's outputs with respect to the field's outputs:
+    g_rgb (SB, B, 3), g_depth and g_acc (SB, B) f32 -> g_field
+    (SB, B*K, 4) f32. A CPU tensor runs the plain version, a CUDA tensor
+    launches the backward kernel."""
+    _check(rays, z_samp, field_out)
+    SB, B, _ = z_samp.shape
+    for name, t, shape in (("g_rgb", g_rgb, (SB, B, 3)),
+                           ("g_depth", g_depth, (SB, B)),
+                           ("g_acc", g_acc, (SB, B))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != z_samp.device:
+            raise ValueError(f"{name} on {t.device}, z_samp on "
+                             f"{z_samp.device}")
+    if z_samp.device.type == "cpu":
+        return composite_rays_backward_plain(rays, z_samp, field_out, g_rgb,
+                                             g_depth, g_acc, white_bkgd)
+    if z_samp.device.type != "cuda":
+        raise ValueError(f"unsupported device {z_samp.device}")
+    return _launch_backward(rays, z_samp, field_out, g_rgb, g_depth, g_acc,
+                            white_bkgd)
+
+
+class CompositeFunction(torch.autograd.Function):
+    """K4 with its backward kernel: forward (rays, z, field_out, white) ->
+    (rgb, depth, acc); backward -> the field's gradient only. Saves z, the
+    field rows and the rays (for far), not the weights."""
+
+    @staticmethod
+    def forward(ctx, rays, z_samp, field_out, white_bkgd):
+        ctx.white_bkgd = white_bkgd
+        ctx.save_for_backward(rays, z_samp, field_out)
+        return _launch_forward(rays, z_samp, field_out, white_bkgd)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_depth, g_acc):
+        rays, z_samp, field_out = ctx.saved_tensors
+        g_field = _launch_backward(rays, z_samp, field_out, g_rgb, g_depth,
+                                   g_acc, ctx.white_bkgd)
+        return None, None, g_field, None
+
+
 def composite_rays(rays, z_samp, field_out, white_bkgd: bool = False):
     """Alpha-composite the field's outputs along each ray.
 
     rays (SB, B, 8) f32; z_samp (SB, B, K) f32 ascending; field_out
     (SB, B*K, 4) f32 [rgb, sigma] in the field's own layout. Returns
-    (rgb (SB, B, 3), depth (SB, B), acc (SB, B)).
+    (rgb (SB, B, 3), depth (SB, B), acc (SB, B)). On a CUDA device, a
+    field_out that requires grad gets its gradient from the backward
+    kernel; rays and z_samp must not require grad there.
     """
     _check(rays, z_samp, field_out)
     if z_samp.device.type == "cpu":
         return composite_rays_plain(rays, z_samp, field_out, white_bkgd)
-    if any(t.requires_grad for t in (rays, z_samp, field_out)):
-        raise RuntimeError("the composite_rays kernel has no backward: use "
-                           "composite_outputs where gradients are needed")
+    if torch.is_grad_enabled() and (rays.requires_grad
+                                    or z_samp.requires_grad):
+        raise RuntimeError("the composite_rays kernels give the gradient of "
+                           "field_out only: rays and z_samp come from the "
+                           "sampler under no_grad")
     if z_samp.device.type != "cuda":
         raise ValueError(f"unsupported device {z_samp.device}")
+    if torch.is_grad_enabled() and field_out.requires_grad:
+        return CompositeFunction.apply(rays, z_samp, field_out,
+                                       bool(white_bkgd))
+    return _launch_forward(rays, z_samp, field_out, white_bkgd)
+
+
+def _launch_forward(rays, z_samp, field_out, white_bkgd):
     SB, B, K = z_samp.shape
     blocks, threads, _ = launch_geometry(SB * B, K)
     dev = z_samp.device

@@ -3,9 +3,10 @@ state_dict.
 
 Input: flax `params` (and `batch_stats` for BatchNorm) as nested dicts of
 arrays, or flat dicts with "a/b/c" keys such as
-tests/fixtures/fastpath_tiny.npz. Keys keep the tree's own root, so a DINER
-tree ("nerf/...") maps onto DINER's state_dict and a PixelNeRF tree onto
-PixelNeRF's.
+tests/fixtures/fastpath_tiny.npz, or a whole variables tree {"params": ...,
+"batch_stats": ...}. Keys keep the tree's own root, so a DINER tree
+("nerf/...", "vgg/...") maps onto DINER's state_dict, its VGG tower
+included, and a PixelNeRF tree onto PixelNeRF's.
 
 Mapping:
 - conv kernels HWIO -> OIHW; Dense kernels (in, out) -> (out, in)
@@ -73,7 +74,13 @@ def _convert(leaf: str, value: np.ndarray) -> np.ndarray:
 
 def from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
              ) -> Dict[str, torch.Tensor]:
-    """flax params (+ batch_stats) -> the port's state_dict (float32)."""
+    """flax params (+ batch_stats), or a variables tree holding both, -> the
+    port's state_dict (float32)."""
+    if "params" in params:
+        if batch_stats is not None:
+            raise ValueError("pass batch_stats inside the variables tree or "
+                             "beside its params, not both")
+        params, batch_stats = params["params"], params.get("batch_stats")
     flat = _flatten(params)
     if batch_stats is not None:
         flat.update(_flatten(batch_stats))

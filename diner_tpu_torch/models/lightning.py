@@ -15,8 +15,9 @@ The map goes straight to the port's keys:
 Both sides keep torch's layouts (OIHW convs, (out, in) linears), so weights
 are copied as they are. The trunk must be BatchNorm (encoder_norm="batch"),
 as the reference's is. The posenc buffers are recomputed from num_freqs and
-freq_factor; the frozen VGG of the perceptual loss is not carried (the port
-has no training yet).
+freq_factor. The frozen VGG of the perceptual loss,
+vggloss.vgg_net.slice{S}.{I}.{weight, bias} (torchvision's features index
+I), maps to the port's Vgg19Features (`nn/vgg.py`) and back.
 """
 
 from __future__ import annotations
@@ -27,9 +28,11 @@ import numpy as np
 import torch
 
 from diner_tpu_torch.nn.resnet import STAGE_BLOCKS
+from diner_tpu_torch.nn.vgg import TORCHVISION_INDEX, slice_of
 
 _ENC = "nerf.encoder.model."
 _MLP = "nerf.mlp_fine."
+_VGG = "vggloss.vgg_net."
 _BN = ("weight", "bias", "running_mean", "running_var")
 _BLOCK_PARTS = {"conv1": "conv_0", "conv2": "conv_1", "bn1": "norm_0",
                 "bn2": "norm_1", "downsample.0": "downsample_conv",
@@ -65,7 +68,8 @@ def from_lightning(sd: Mapping, backbone: str = "resnet34",
                                                  Dict]:
     """Reference Lightning state_dict -> (the port's PixelNeRF state_dict,
     extras). extras: conv1_in_channels (3 + the border-PE channels the
-    checkpoint was trained with), znear and zfar (None when absent)."""
+    checkpoint was trained with), znear and zfar, and vgg_params, the
+    Vgg19Features state_dict of the loss tower (each None when absent)."""
     def f32(key):
         return torch.as_tensor(np.asarray(sd[key], np.float32))
 
@@ -84,7 +88,14 @@ def from_lightning(sd: Mapping, backbone: str = "resnet34",
                 raise KeyError(f"{key}: ResnetFC blocks with a shortcut are "
                                "not supported")
             out[f"mlp.{key[len(_MLP):]}"] = f32(key)
+    vgg = {}
+    for name, idx in TORCHVISION_INDEX.items():
+        for leaf in ("weight", "bias"):
+            key = f"{_VGG}slice{slice_of(name)}.{idx}.{leaf}"
+            if key in sd:
+                vgg[f"{name}.{leaf}"] = f32(key)
     extras = {"conv1_in_channels": int(sd[f"{_ENC}conv1.weight"].shape[1]),
+              "vgg_params": vgg or None,
               "znear": float(sd["znear"]) if "znear" in sd else None,
               "zfar": float(sd["zfar"]) if "zfar" in sd else None}
     return out, extras
@@ -102,9 +113,9 @@ def _posenc_buffers(prefix: str, num_freqs: int, freq_factor: float):
 
 
 def to_lightning(model) -> Dict[str, torch.Tensor]:
-    """A DINER (its PixelNeRF, znear and zfar) -> a reference-keyed Lightning
-    state_dict, the inverse of `from_lightning`. Save it as
-    torch.save({"state_dict": sd}, path)."""
+    """A DINER (its PixelNeRF, znear, zfar and, when it has one, its VGG
+    tower) -> a reference-keyed Lightning state_dict, the inverse of
+    `from_lightning`. Save it as torch.save({"state_dict": sd}, path)."""
     nerf = model.nerf
     if not isinstance(nerf.encoder.trunk.norm1, torch.nn.BatchNorm2d):
         raise ValueError("the reference trunk is BatchNorm: export needs "
@@ -125,4 +136,11 @@ def to_lightning(model) -> Dict[str, torch.Tensor]:
     for key, value in own.items():
         if key.startswith("mlp."):
             sd[f"{_MLP}{key[len('mlp.'):]}"] = value
+    vgg = getattr(model, "vgg", None)
+    if vgg is not None:
+        for name, idx in TORCHVISION_INDEX.items():
+            conv = getattr(vgg, name)
+            for leaf in ("weight", "bias"):
+                sd[f"{_VGG}slice{slice_of(name)}.{idx}.{leaf}"] = \
+                    getattr(conv, leaf).detach().cpu()
     return sd

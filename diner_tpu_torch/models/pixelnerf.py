@@ -9,6 +9,12 @@ cam-space position and the signed distance to the MVS surface
 ResnetFC with a mid-network view mean. The epipolar-anchor variants of the
 latent fetch (latent_anchors, latent_sample_stride, latent_unique_cells) are
 not ported yet.
+
+Training: `encode(..., train=True)` runs the encoder's norms in train mode
+(BatchNorm on batch statistics, updating its running ones), and
+`remat_field=True` recomputes the field MLP's activations in the backward
+pass instead of keeping them (torch.utils.checkpoint), as the JAX
+package's nn.remat does.
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from diner_tpu_torch.core.types import EpiAnchors, SceneEncoding
+from diner_tpu_torch.core.types import (IMAGENET_MEAN, IMAGENET_STD,
+                                       EpiAnchors, SceneEncoding)
 from diner_tpu_torch.geometry import (depth2normal, project_points,
                                       transform_points)
 from diner_tpu_torch.image_ops import grid_sample, grid_sample_quad, pack_quad
@@ -27,8 +35,6 @@ from diner_tpu_torch.kernels.remap import remap_anchors
 from diner_tpu_torch.nn import ResnetFC, SpatialEncoder, posenc, posenc_dim
 from diner_tpu_torch.sampler.depth_guided import anchor_ids
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
@@ -89,7 +95,8 @@ class PixelNeRF(nn.Module):
                  combine_layer: int = 3, compute_dtype: str = "float32",
                  quad_latent: bool = False, latent_quant: str = "none",
                  sigma_bias_init: float = 0.5,
-                 sigma_activation: str = "softplus"):
+                 sigma_activation: str = "softplus",
+                 remat_field: bool = False):
         super().__init__()
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
@@ -102,6 +109,7 @@ class PixelNeRF(nn.Module):
         self.num_freqs, self.freq_factor = num_freqs, freq_factor
         self.quad_latent, self.latent_quant = quad_latent, latent_quant
         self.sigma_activation = sigma_activation
+        self.remat_field = remat_field
         self.dtype = _DTYPES[compute_dtype]
         self.encoder = SpatialEncoder(
             backbone=backbone, num_layers=encoder_layers, norm=encoder_norm,
@@ -115,10 +123,12 @@ class PixelNeRF(nn.Module):
                             out_bias_init=(0.0, 0.0, 0.0, sigma_bias_init),
                             zero_init_out_channels=(3,))
 
-    def encode(self, images, depths, depth_stds, extrinsics,
-               intrinsics) -> SceneEncoding:
+    def encode(self, images, depths, depth_stds, extrinsics, intrinsics,
+               train: bool = False) -> SceneEncoding:
         """images (SB, NV, H, W, 3) in [0, 1]; depths/stds (SB, NV, H, W, 1);
-        extrinsics (SB, NV, 4, 4); intrinsics (SB, NV, 3, 3)."""
+        extrinsics (SB, NV, 4, 4); intrinsics (SB, NV, 3, 3). train puts the
+        encoder in train mode, else in eval mode."""
+        self.encoder.train(train)
         SB, NV, H, W, _ = images.shape
         mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype,
                             device=images.device)
@@ -184,7 +194,10 @@ class PixelNeRF(nn.Module):
                                self.freq_factor)
         mlp_in = torch.cat([gathered["latent"], z_feature, dirs_cam,
                             depth_feature], dim=-1)
-        out = self.mlp(mlp_in, 1)                          # (SB, B, 4)
+        if self.remat_field and torch.is_grad_enabled():
+            out = checkpoint(self.mlp, mlp_in, 1, use_reentrant=False)
+        else:
+            out = self.mlp(mlp_in, 1)                      # (SB, B, 4)
         rgb = torch.sigmoid(out[..., :3])
         if self.sigma_activation == "softplus":
             sigma = F.softplus(out[..., 3:4])

@@ -5,7 +5,8 @@ Maps run NCHW inside the trunk (cuDNN's layout). With a compute dtype set,
 each convolution casts its input and weight to it, while the norms run in
 float32 and return float32, as flax does when bf16 activations meet f32 norm
 parameters. Norm epsilons follow flax: BatchNorm 1e-5, GroupNorm 1e-6 (torch's
-GroupNorm default is 1e-5).
+GroupNorm default is 1e-5). In train mode BatchNorm updates its running
+variance with the biased batch variance, as flax does (`BatchNorm`).
 """
 
 from __future__ import annotations
@@ -20,9 +21,29 @@ STAGE_BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 STAGE_CHANNELS = (64, 128, 256, 512)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax's running statistics (momentum 0.9 there, 0.1
+    here): in train mode it normalizes with the batch mean and biased
+    variance, as torch does, and updates the running variance with that
+    biased variance too (torch updates it with the unbiased one). Eval is
+    torch's own."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2, 3)
+        with torch.no_grad():
+            self.running_mean.lerp_(x.mean(dims), self.momentum)
+            self.running_var.lerp_(x.var(dims, unbiased=False),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 def make_norm(kind: str, channels: int) -> nn.Module:
     if kind == "batch":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm(channels, eps=1e-5, momentum=0.1)
     if kind == "group":
         return nn.GroupNorm(min(32, channels), channels, eps=1e-6)
     raise ValueError(f"unknown norm {kind!r}")

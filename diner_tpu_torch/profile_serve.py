@@ -18,7 +18,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import subprocess
 import time
 from pathlib import Path
 
@@ -36,18 +35,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from diner_tpu_torch.core import resolve_device
     from diner_tpu_torch.data import SyntheticSphereDataset
     from diner_tpu_torch.serve import RenderServer
+    from diner_tpu_torch.utils.profiling import (card_name, device_tables,
+                                                 print_tables, tables_json)
 
     resolve_device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_name()
     H, W = IMAGE
     torch.manual_seed(0)
     ds = SyntheticSphereDataset(n_scenes=1, n_views=VIEWS, H=H, W=W, seed=0)
@@ -73,19 +70,7 @@ def main(argv=None) -> int:
             request(i + 1)
             wall.append(time.perf_counter() - t)
 
-    def device_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
-
-    # kernel rows (device events) carry the device time once; operator rows
-    # (aten::*) carry the time of the kernels they launched
-    rows = [(e.key, device_us(e), e.count, e.device_type == DeviceType.CUDA)
-            for e in prof.key_averages()]
-    kernels = sorted((r for r in rows if r[3] and r[1] > 0),
-                     key=lambda r: -r[1])
-    operators = sorted((r for r in rows if not r[3] and r[1] > 0),
-                       key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in kernels)
+    operators, kernels, busy_us = device_tables(prof)
     wall_s = sum(wall)
     n = args.requests
     print(card)
@@ -93,21 +78,13 @@ def main(argv=None) -> int:
     print(f"requests {[round(w, 4) for w in wall]} s at {H}x{W} "
           f"(profiler on); device busy {busy_us / 1e6:.4f} s of "
           f"{wall_s:.4f} s = {busy_us / 1e6 / wall_s:.3f}")
-    for title, table in (("operators", operators), ("kernels", kernels)):
-        print(f"{title}: device ms/request, share of busy, calls/request")
-        for key, us, count, _ in table[:args.top]:
-            print(f"{us / 1e3 / n:10.3f} {us / busy_us:6.3f} "
-                  f"{count / n:7.1f}  {key[:100]}")
+    print_tables(operators, kernels, busy_us, n, "request", args.top)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "likelihood": args.likelihood,
                        "requests_s": wall,
                        "device_busy_s": busy_us / 1e6,
-                       **{title: [{"name": k, "device_ms_per_request":
-                                   us / 1e3 / n, "calls_per_request": c / n}
-                                  for k, us, c, _ in table]
-                          for title, table in (("operators", operators),
-                                               ("kernels", kernels))}},
+                       **tables_json(operators, kernels, n, "request")},
                       f, indent=1)
     return 0
 

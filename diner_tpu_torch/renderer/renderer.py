@@ -30,9 +30,11 @@ FieldFn = Callable[[torch.Tensor, torch.Tensor, Optional[object]],
 def render_rays(field_fn: FieldFn, rays, enc: SceneEncoding,
                 cfg: RenderConfig, noise=None, generator=None):
     """rays (SB, B, 8) -> dict(rgb (SB, B, 3), depth (SB, B)); the field's
-    outputs are composited by kernel K4."""
-    z, epi_aux = sample_depthguided(rays, enc, cfg, noise, generator,
-                                    return_aux=True)
+    outputs are composited by kernel K4. The sampler runs under no_grad, as
+    the reference samples; gradients flow through the field and K4."""
+    with torch.no_grad():
+        z, epi_aux = sample_depthguided(rays, enc, cfg, noise, generator,
+                                        return_aux=True)
     if not cfg.anchor_field_depth:
         epi_aux = None
     points, dirs = sample_points(rays, z)

@@ -21,7 +21,9 @@ import torch
 from scipy.special import erf as scipy_erf
 
 from diner_tpu_torch.kernels import (KERNELS, chord, composite,
-                                     composite_rays, composite_rays_plain,
+                                     composite_rays, composite_rays_backward,
+                                     composite_rays_backward_plain,
+                                     composite_rays_plain,
                                      likelihood_from_anchors,
                                      likelihood_from_anchors_plain,
                                      likelihood_from_chord,
@@ -29,6 +31,7 @@ from diner_tpu_torch.kernels import (KERNELS, chord, composite,
                                      remap_anchors, remap_anchors_plain)
 from diner_tpu_torch.kernels.build import MAX_SHARED_BYTES
 from diner_tpu_torch.kernels.cases import (EDGE_STDS, chord_inputs,
+                                           composite_grad_inputs,
                                            composite_inputs, max_abs_diff,
                                            with_edge_cases)
 
@@ -320,19 +323,141 @@ def test_composite_launch_geometry():
 
 
 def test_composite_refuses_grad_off_the_cpu():
-    """The K4 kernel has no backward: off the CPU, inputs that require grad
-    raise before any launch (meta tensors stand in for the card here). On
-    the CPU the plain version keeps the autograd graph."""
-    rays, z, out = (torch.empty(1, 4, 8, device="meta"),
-                    torch.empty(1, 4, 3, device="meta"),
-                    torch.empty(1, 12, 4, device="meta", requires_grad=True))
-    with pytest.raises(RuntimeError, match="no backward"):
-        composite_rays(rays, z, out)
+    """Off the CPU the kernels give the gradient of field_out only: rays or
+    z that require grad raise before any launch (meta tensors stand in for
+    the card here). On the CPU the plain version keeps the whole autograd
+    graph."""
+    shapes = {"rays": (1, 4, 8), "z": (1, 4, 3), "out": (1, 12, 4)}
+    for grad_of in ("rays", "z"):
+        inputs = [torch.empty(shape, device="meta",
+                              requires_grad=name == grad_of)
+                  for name, shape in shapes.items()]
+        with pytest.raises(RuntimeError, match="field_out only"):
+            composite_rays(*inputs)
     rays, z, out = (_t(x) for x in composite_inputs(1, 1, 4, 3))
     out.requires_grad_(True)
+    z.requires_grad_(True)
     rgb, _, _ = composite_rays(rays, z, out)
     rgb.sum().backward()
     assert out.grad is not None and torch.isfinite(out.grad).all()
+    assert z.grad is not None
+
+
+def composite_backward_kernel_model(rays, z, out, g_rgb, g_depth, g_acc,
+                                    white_bkgd):
+    """csrc/composite_bwd.cu's order of operations in float32 torch: a warp
+    per ray in 32-sample tiles, lanes past K at alpha 0. Pass 1, tiles
+    forward: per lane alpha, v, dalpha/dsigma (half delta at sigma == 0),
+    the warp's Hillis-Steele product scan of t (shfl_up 1, 2, ..., 16), its
+    exclusive shift and the tile carry for T. Pass 2, tiles backward: the
+    reverse scan of the affine maps s -> alpha v + t s (shfl_down 1, ...,
+    16, a lane combining with lane + off while that is in the warp), the
+    exclusive shift, S = a + b s_carry, and the carry F_0(s_carry)."""
+    SB, B, K = z.shape
+    N, T = SB * B, -(-K // 32)
+    zr, f = z.reshape(N, K), out.reshape(N, K, 4)
+    g, gd, ga = g_rgb.reshape(N, 3), g_depth.reshape(N, 1), \
+        g_acc.reshape(N, 1)
+    delta = torch.cat([zr[:, 1:], rays.reshape(N, 8)[:, 7:]], 1) - zr
+    sigma = f[..., 3]
+    e = torch.exp(-delta * sigma.clamp(min=0.0))
+    bg = g.sum(-1, keepdim=True) if white_bkgd else torch.zeros(N, 1)
+    v = (g[:, :1] * f[..., 0] + g[:, 1:2] * f[..., 1] + g[:, 2:] * f[..., 2]
+         + gd * zr + ga - bg)
+    dads = torch.where(sigma > 0, delta * e,
+                       torch.where(sigma == 0, 0.5 * delta, 0.0))
+
+    def tiles(x):  # (N, K) -> (N, T, 32), zero past K
+        return torch.nn.functional.pad(x, (0, T * 32 - K)).reshape(N, T, 32)
+
+    alpha, v, dads = tiles(1.0 - e), tiles(v), tiles(dads)
+    t = (1.0 - alpha) + 1e-10
+    lane = torch.arange(32)
+    trans, carry = torch.empty(N, T, 32), torch.ones(N, 1)
+    for i in range(T):
+        incl, off = t[:, i], 1
+        while off < 32:
+            up = torch.roll(incl, off, 1)
+            incl = torch.where(lane >= off, incl * up, incl)
+            off *= 2
+        excl = torch.where(lane == 0, 1.0, torch.roll(incl, 1, 1))
+        trans[:, i] = carry * excl
+        carry = carry * incl[:, 31:]
+    g_sigma, s_carry = torch.empty(N, T, 32), torch.zeros(N, 1)
+    for i in reversed(range(T)):
+        a, b, off = alpha[:, i] * v[:, i], t[:, i], 1
+        while off < 32:
+            a2, b2 = torch.roll(a, -off, 1), torch.roll(b, -off, 1)
+            keep = lane + off < 32
+            a, b = torch.where(keep, a + b * a2, a), \
+                torch.where(keep, b * b2, b)
+            off *= 2
+        ae = torch.where(lane == 31, 0.0, torch.roll(a, -1, 1))
+        be = torch.where(lane == 31, 1.0, torch.roll(b, -1, 1))
+        S = ae + be * s_carry
+        g_sigma[:, i] = trans[:, i] * (v[:, i] - S) * dads[:, i]
+        s_carry = a[:, :1] + b[:, :1] * s_carry
+    w = (alpha * trans).reshape(N, -1)[:, :K]
+    g_sigma = g_sigma.reshape(N, -1)[:, :K]
+    return torch.cat([w[..., None] * g[:, None], g_sigma[..., None]],
+                     -1).reshape(SB, B * K, 4)
+
+
+@pytest.mark.parametrize("white", [False, True])
+@pytest.mark.parametrize("K", [1, 5, 32, 37, 40, 64])
+def test_composite_backward_kernel_arithmetic_matches_plain(K, white):
+    """K4's backward in its kernel's order of operations against autograd
+    through the plain version on the CPU, within 1e-5 + 1e-4 |plain| (the
+    tolerance chip_smoke.py holds the kernel to), at K below, at and above
+    a tile and odd, SB = 2 and B = 101, with about one sigma in 8 exactly
+    0. The plain version's gradient and the model's also agree with a
+    float64 autograd within 1e-6."""
+    inputs = [_t(x) for x in composite_grad_inputs(K, 2, 101, K)]
+    got = composite_backward_kernel_model(*inputs, white)
+    ref = composite_rays_backward_plain(*inputs, white)
+    assert ((got - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all()
+    ref64 = composite_rays_backward_plain(*(x.double() for x in inputs),
+                                          white)
+    assert (got.double() - ref64).abs().max() <= 1e-6
+    assert (ref.double() - ref64).abs().max() <= 1e-6
+
+
+def test_composite_backward_geometry_and_function_on_cpu(monkeypatch):
+    """The backward's launch geometry (a warp a ray, 4 rays a block), and
+    CompositeFunction's plumbing with the launches replaced by the plain
+    versions (the kernels run only on the card): the field's gradient is
+    autograd's, rays and z get none, and the Function is not used where no
+    gradient is wanted (no_grad, inference mode)."""
+    assert composite.backward_geometry(4 * 4096, 40) == (4096, 128, 0)
+    assert composite.backward_geometry(2 * 1001, 37) == (501, 128, 0)
+    assert composite.backward_geometry(0, 8) == (0, 128, 0)
+    for bad in ((16, 0), (2 ** 34, 32)):
+        with pytest.raises(ValueError):
+            composite.backward_geometry(*bad)
+    calls = []
+    monkeypatch.setattr(composite, "_launch_forward", lambda *a: (
+        calls.append("fwd"), composite_rays_plain(*a))[1])
+    monkeypatch.setattr(composite, "_launch_backward", lambda *a: (
+        calls.append("bwd"), composite_rays_backward_plain(*a))[1])
+    rays, z, out, g_rgb, g_d, g_a = (_t(x) for x in
+                                     composite_grad_inputs(2, 2, 9, 7))
+    for white in (False, True):
+        leaf = out.clone().requires_grad_(True)
+        res = composite.CompositeFunction.apply(rays, z, leaf, white)
+        torch.autograd.backward(res, (g_rgb, g_d, g_a))
+        assert torch.equal(leaf.grad, composite_rays_backward_plain(
+            rays, z, out, g_rgb, g_d, g_a, white))
+        rgb_only = out.clone().requires_grad_(True)
+        composite.CompositeFunction.apply(rays, z, rgb_only,
+                                          white)[0].sum().backward()
+        assert torch.equal(rgb_only.grad, composite_rays_backward_plain(
+            rays, z, out, torch.ones_like(g_rgb), torch.zeros_like(g_d),
+            torch.zeros_like(g_a), white))
+    assert calls == ["fwd", "bwd"] * 4
+    with torch.inference_mode():
+        res = composite.CompositeFunction.apply(rays, z, out, False)
+    assert all(torch.equal(a, b) for a, b in
+               zip(res, composite_rays_plain(rays, z, out)))
 
 
 def test_kernel_wrappers_reject_bad_inputs():
@@ -462,7 +587,7 @@ def test_composite_kernel_matches_plain_on_card(cuda, K, white):
     1e-5 |plain| (the group scan and sums take the products and sums in
     another order). The first row alone (1001 rays: a group past the last
     ray in the last warp) and the same inputs at addresses off the 16-byte
-    grain give the same result."""
+    grain give the same result. z that requires grad is refused."""
     rays, z, out = (_t(x).to(cuda) for x in composite_inputs(K, 2, 1001, K))
     before = KERNELS["composite_rays"].launches
     got = composite_rays(rays, z, out, white)
@@ -478,8 +603,43 @@ def test_composite_kernel_matches_plain_on_card(cuda, K, white):
         assert torch.equal(g, r[:1])
     for g, r in zip(composite_rays(rays, z_off, out_off, white), got):
         assert torch.equal(g, r)
-    with pytest.raises(RuntimeError, match="no backward"):
-        composite_rays(rays, z, out.requires_grad_(True), white)
+    with pytest.raises(RuntimeError, match="field_out only"):
+        composite_rays(rays, z.requires_grad_(True), out, white)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white", [False, True])
+@pytest.mark.parametrize("K", [1, 5, 32, 37, 40, 64])
+def test_composite_backward_kernel_matches_plain_on_card(cuda, K, white):
+    """K4's backward kernel vs autograd through the plain version on the
+    card, at the CPU model's K, SB = 2 and B = 1001 rays (a partial last
+    block), about one sigma in 8 exactly 0: within 1e-5 + 1e-4 |plain|
+    (the scans take the products and sums in another order). Through
+    composite_rays with a field that requires grad, one forward and one
+    backward launch give the kernel's gradient bitwise; a field at an
+    address off the 16-byte grain gives the same gradient."""
+    inputs = [_t(x).to(cuda) for x in composite_grad_inputs(K, 2, 1001, K)]
+    before = KERNELS["composite_rays_backward"].launches
+    got = composite_rays_backward(*inputs, white)
+    ref = composite_rays_backward_plain(*inputs, white)
+    torch.cuda.synchronize()
+    assert KERNELS["composite_rays_backward"].launches == before + 1
+    assert ((got - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all()
+    rays, z, out, g_rgb, g_d, g_a = inputs
+    counts = (KERNELS["composite_rays"].launches,
+              KERNELS["composite_rays_backward"].launches)
+    leaf = out.clone().requires_grad_(True)
+    torch.autograd.backward(composite_rays(rays, z, leaf, white),
+                            (g_rgb, g_d, g_a))
+    assert (KERNELS["composite_rays"].launches,
+            KERNELS["composite_rays_backward"].launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert torch.equal(leaf.grad, got)
+    out_off = torch.empty(out.numel() + 1, device=cuda)[1:].view_as(
+        out).copy_(out)
+    assert out_off.data_ptr() % 16
+    assert torch.equal(composite_rays_backward(rays, z, out_off, g_rgb, g_d,
+                                               g_a, white), got)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
