@@ -8,7 +8,8 @@ Run from the repo root on a machine with a CUDA card and the CUDA toolkit:
 Phases, each printed on its own lines; any failure exits nonzero before the
 last line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. nvcc builds every kernel under diner_tpu_torch/csrc/, in parallel;
+  2. nvcc builds every kernel under diner_tpu_torch/csrc/, in parallel,
+     and c++ the readers' PNG row defilter (csrc/png_unfilter.cpp);
   3. K1 (likelihood_from_anchors) at the fast preset's chunk shapes vs its
      plain PyTorch version on the card: bitwise selection, p within 2e-6;
      kernel, plain and bound times;
@@ -54,12 +55,30 @@ last line:
   10b. training at full width: cli/train on configs/train_dtu.yaml's nerf,
      renderer and optimizer sections (ResNet34 + group norm, ResnetFC
      512x5 f32, 40 samples from 1000 candidates, VGG 0.1 and antibias 1.0
-     on 64x64 patches, Adam at 1e-4) on synthetic 4-view 256x320 scenes,
+     on 64x64 patches, Adam at 1e-4) on 36 synthetic 4-view 256x320 scenes,
      batch 4: 8 steps, a save, a resume for 2 more, then render_eval --ckpt
      on one val image. Each step must launch K4 and its backward once and
      K1-K3 never; every loss finite; the checkpoint reloads bitwise; the
      resumed run ends at step 10. Prints steps/s, s/step after warm-up and
      the peak memory;
+  10c. dtu_eval: a DTU-layout tree of one scan at the dataset's real size
+     under build/ (49 MVSNet cams, 343 512x640 images, the source cams'
+     uint16 depth and confidence PNGs, their rows filtered adaptively by
+     Pillow: the synthetic sphere scene inside the reader's depth range);
+     one depth PNG's row filters and decode time; cli/render_eval of the
+     fast DTU preset from it
+     (random weights from a seed) on 2 images: 20 launches of K1, K2 and K4
+     an image, finite scores; the reader's host seconds per sample apart
+     from the rest, and the reader alone on four samples;
+  10d. facescape_eval and multiface_eval: a FaceScape tree at 256x256 and a
+     MultiFace tree of raw 2048x1334 frames (downsample 8 -> 256x160), meta
+     caches and split config in temporary directories; render_eval --n 1 of
+     each fast preset: 16 and 10 launches of K1, K2 and K4 an image;
+  10e. sweep: create_cam_sweep on the DTU val set, 4 frames of one sweep:
+     20 launches of K1, K2 and K4 a frame, an mp4;
+  10f. dtu_train: cli/train with train_dtu.yaml's sections on the DTU tree
+     (343 metas), batch 4, 3 steps: one K4 and one K4 backward launch a
+     step, finite losses; s/step and the loader's seconds per sample;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
      route (phase 7; K4's backward: phase 10b), error and times (K4's entry
      also the empty launch's);
@@ -117,6 +136,17 @@ TRAIN_SB, TRAIN_K = 4, 40
 TRAIN_B = 64 * 64
 TRAIN_STEPS, RESUME_STEPS = 8, 2
 TRAIN_REMAT = False      # remat_field off: batch 4 fits in 80 GB
+MULTIFACE_PRESET = ROOT / "configs" / "evaluate_diner_on_multiface_fast.yaml"
+# the dataset phases' trees, under the gitignored build/
+DATA_DIR = ROOT / "build" / "chip_smoke_data"
+DTU_DOWNSAMPLE = 0.5     # the DTU reader's default: 256x320 images
+# the DTU tree's cams look at the sphere scene from DTU_CAM_RADIUS; the
+# scene scaled by DTU_SCENE_SCALE reaches at most 0.37 from the origin, so
+# its depths lie in [0.39, 1.13], inside the reader's [0.321, 1.204]
+DTU_CAM_RADIUS, DTU_SCENE_SCALE = 0.76, 0.3
+MULTIFACE_RAW = (2048, 1334)   # MultiFace's frames, H x W
+SWEEP_FRAMES = 4
+DTU_TRAIN_STEPS = 3
 
 
 class SmokeFailure(Exception):
@@ -180,9 +210,15 @@ def phase_build():
     from diner_tpu_torch.kernels import build_all
     from diner_tpu_torch.kernels.build import kernel_sources
 
+    from diner_tpu_torch.kernels.build import host_library
+
     t = time.perf_counter()
     build_all()
     log(f"build: nvcc {kernel_sources()} in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    host_library("png_unfilter")
+    log(f"build: c++ png_unfilter (the readers' PNG row defilter) in "
+        f"{time.perf_counter() - t:.2f} s")
 
 
 def phase_k1(flush):
@@ -744,11 +780,12 @@ def _train_config(tmp: Path, batch_size: int) -> Path:
     from diner_tpu_torch.core.config import load_config
 
     conf = load_config(TRAIN_CONFIG)
-    # 32 scenes: the 8 steps are one epoch at batch 4, so that no timed step
-    # waits for the loader to start an epoch (the first batch of an epoch
-    # is not prefetched)
+    # 36 scenes: the batch the loop drops (as the JAX loop spends it on
+    # initialization) and the 8 steps are one epoch at batch 4, so that no
+    # timed step waits for the loader to start an epoch (the first batch of
+    # an epoch is not prefetched)
     data = {"module": "SyntheticSphereDataset",
-            "kwargs": {"n_scenes": 32, "n_views": NV, "H": H, "W": W,
+            "kwargs": {"n_scenes": 36, "n_views": NV, "H": H, "W": W,
                        "seed": 0}}
     conf["data"] = {
         "train": {"dataset": data, "dataloader": {"kwargs": {
@@ -870,6 +907,478 @@ def phase_train(card):
     return backward_launches
 
 
+def _launches():
+    from diner_tpu_torch.kernels import KERNELS
+
+    return {n: k.launches for n, k in KERNELS.items()}
+
+
+def _zero_launches():
+    from diner_tpu_torch.kernels import KERNELS
+
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _expect(k1=0, k2=0, k4=0, k4_backward=0):
+    return {"likelihood_from_anchors": k1, "remap_anchors": k2,
+            "likelihood_from_chord": 0, "composite_rays": k4,
+            "composite_rays_backward": k4_backward}
+
+
+class _TimedReads:
+    """Times every __getitem__ of a dataset class while active: the
+    reader's host seconds, apart from what the caller does with them."""
+
+    def __init__(self, cls):
+        self.cls, self.seconds = cls, []
+
+    def __enter__(self):
+        orig = self.orig = self.cls.__getitem__
+
+        def timed(ds, idx):
+            t = time.perf_counter()
+            try:
+                return orig(ds, idx)
+            finally:
+                self.seconds.append(time.perf_counter() - t)
+
+        self.cls.__getitem__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__getitem__ = self.orig
+
+    def per_sample(self):
+        return statistics.fmean(self.seconds) if self.seconds else 0.0
+
+
+def _sphere_views(H_, W_, scale, exts, K):
+    """The port's synthetic sphere scene (seed 0), scaled by `scale`, seen
+    by world->cam `exts` through K at H_ x W_: [(rgb, alpha, depth)]."""
+    from diner_tpu_torch.data import SyntheticSphereDataset
+
+    ds = SyntheticSphereDataset(n_scenes=1, H=H_, W=W_, seed=0)
+    centers, radii, colors = ds._scene(0)
+    return [ds._render_view(e, K, centers * scale, radii * scale, colors)
+            for e in exts]
+
+
+def _lookat(eye, up):
+    """World->cam extrinsics at `eye` looking at the origin."""
+    from diner_tpu_torch.data.synthetic import _lookat
+
+    return _lookat(eye, up=up)
+
+
+def _u8(img01):
+    import numpy as np
+
+    return (np.clip(img01, 0, 1) * 255).astype(np.uint8)
+
+
+def write_png16_adaptive(path, img):
+    """A uint16 grey PNG by Pillow's encoder, which, as libpng-based writers
+    do, picks each row's filter by trying them (mostly Paeth on a depth
+    map), so the readers decode what real depth trees hold."""
+    import numpy as np
+    from PIL import Image
+
+    Image.fromarray(np.asarray(img, np.uint16)).save(path)
+
+
+def row_filters(path):
+    """{filter type: rows} of a PNG."""
+    import collections
+    import struct
+    import zlib
+
+    data, pos, idat = Path(path).read_bytes(), 8, []
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            (H,) = struct.unpack(">I", body[4:8])
+        elif kind == b"IDAT":
+            idat.append(body)
+    rows = zlib.decompress(b"".join(idat))
+    stride = len(rows) // H
+    return dict(sorted(collections.Counter(
+        rows[y * stride] for y in range(H)).items()))
+
+
+def write_dtu_tree(root: Path, card):
+    """A DTU-layout tree of one scan at the dataset's real size: 49 MVSNet
+    cam files (intrinsics at 1/4 resolution, translations in mm), the
+    512x640 rectified image of every cam under each of the 7 lights, and
+    the uint16 TransMVSNet depth and confidence PNGs of the source cams
+    30, 10, 6 and 35. The images and depths are the synthetic sphere scene
+    seen from a 7 x 7 grid of cams at DTU_CAM_RADIUS, its depths inside
+    the reader's [znear, zfar] = [400, 1500] x 0.7/872."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from diner_tpu_torch.data.codecs import read_png16, write_mvsnet_cam
+    from diner_tpu_torch.data.dtu import DTUDataset
+
+    t = time.perf_counter()
+    sf = DTUDataset.SCALE_FACTOR_DEFAULT
+    K = np.array([[0.9 * 640, 0, 320], [0, 0.9 * 640, 256], [0, 0, 1]],
+                 np.float32)
+    exts = []
+    for el in np.linspace(-0.25, 0.25, 7):
+        for az in np.linspace(-0.5, 0.5, 7):
+            exts.append(_lookat(DTU_CAM_RADIUS * np.array([
+                np.sin(az) * np.cos(el), np.sin(el),
+                -np.cos(az) * np.cos(el)]), np.array([0.0, -1.0, 0.0])))
+    views = _sphere_views(512, 640, DTU_SCENE_SCALE, exts, K)
+    cams = root / "Cameras" / "train"
+    cams.mkdir(parents=True)
+    quarter = K.copy()
+    quarter[:2] /= 4
+    for i, e in enumerate(exts):
+        mm = e.copy()
+        mm[:3, 3] /= sf
+        write_mvsnet_cam(cams / f"{i:08d}_cam.txt", mm, quarter, 425.0, 2.5)
+    images = root / "Rectified" / "scan1_train"
+    images.mkdir(parents=True)
+    jobs = [(images / f"rect_{i + 1:03d}_{light}_r5000.png",
+             _u8(rgb * (0.7 + 0.05 * light)))
+            for i, (rgb, _, _) in enumerate(views) for light in range(7)]
+    with ThreadPoolExecutor(8) as pool:   # Pillow's encoder frees the GIL
+        list(pool.map(lambda j: Image.fromarray(j[1]).save(j[0]), jobs))
+    depths = root / "Depths" / "scan1"
+    depths.mkdir(parents=True)
+    lo, hi = [], []
+    for i in DTUDataset.SRC_CAM_IDCS:
+        d = views[i][2][..., 0]
+        lo.append(d[d > 0].min())
+        hi.append(d.max())
+        stem = depths / f"depth_map_{i:04d}_TransMVSNet"
+        # the reader undoes the TransMVSNet training scale: a PNG unit is
+        # 1e-4 of the reader's (scaled) depth
+        write_png16_adaptive(stem.with_suffix(".png"), np.round(d / 1e-4))
+        conf = np.where(d > 0, 0.9 - 0.3 * (d - d.min()) / np.ptp(d), 0)
+        write_png16_adaptive(stem.with_name(stem.name + "_conf.png"),
+                             np.round(conf / 1e-4))
+    (root / "splits").mkdir()
+    for split in ("train", "val"):
+        (root / "splits" / f"dtu_{split}_all.txt").write_text("scan1\n")
+    check(min(lo) > 400 * sf and max(hi) < 1500 * sf,
+          f"source depths {min(lo)}..{max(hi)} outside [znear, zfar]")
+    log(f"dtu tree: 49 cams, {len(jobs)} 512x640 images, "
+        f"{2 * len(DTUDataset.SRC_CAM_IDCS)} uint16 depth and conf PNGs, "
+        f"source depths {min(lo):.4f}..{max(hi):.4f}, written in "
+        f"{time.perf_counter() - t:.2f} s")
+    # one depth map: its rows' filters and the port's decode of it
+    i = DTUDataset.SRC_CAM_IDCS[0]
+    path = depths / f"depth_map_{i:04d}_TransMVSNet.png"
+    filters = row_filters(path)
+    check(np.array_equal(read_png16(path),
+                         np.round(views[i][2][..., 0] / 1e-4)),
+          f"{path.name} does not read back as written")
+    check(filters.get(3, 0) + filters.get(4, 0) > 0,
+          f"{path.name}: no Average or Paeth rows ({filters})")
+    seconds = []
+    for _ in range(20):
+        t = time.perf_counter()
+        read_png16(path)
+        seconds.append(time.perf_counter() - t)
+    log(f"dtu tree: a 512x640 uint16 depth PNG with row filters {filters} "
+        f"(type: rows; 3 Average, 4 Paeth) decodes in "
+        f"{statistics.median(seconds) * 1e3:.3f} ms (median of 20, one "
+        f"thread) [{card}]")
+
+
+def _dtu_data(root: Path):
+    return {"module": "DTUDataset", "kwargs": {
+        "root": str(root), "depth_fname": "TransMVSNet",
+        "split_dir": str(root / "splits"), "downsample": DTU_DOWNSAMPLE}}
+
+
+def _random_ckpt(conf, tmp: Path) -> Path:
+    """The preset's NeRF with random weights from seed 0, saved as the
+    port's trainer saves a checkpoint."""
+    import torch
+
+    from diner_tpu_torch.cli.build import build_nerf
+    from diner_tpu_torch.train import ckpt_io
+
+    torch.manual_seed(0)
+    ckpt_io.save(tmp / "ckpts", 0, {
+        "nerf": build_nerf(conf["nerf"]).state_dict(), "step": 0})
+    return tmp / "ckpts"
+
+
+def _eval_preset(label, preset, data, dataset_cls, n, hw, card, tmp: Path):
+    """cli/render_eval of `preset` with its data section replaced by
+    `data`, from a random checkpoint, on `n` images of `hw` pixels; each
+    image must launch K1, K2 and K4 once a chunk of the preset. Returns the
+    scores."""
+    import numpy as np
+    import yaml
+
+    from diner_tpu_torch.cli import render_eval
+    from diner_tpu_torch.core.config import load_config
+
+    conf = load_config(preset)
+    conf["data"]["val"]["dataset"] = data
+    per_image = -(-hw[0] * hw[1]
+                  // conf["renderer"]["kwargs"]["eval_chunk_rays"])
+    cfg = tmp / f"{label}.yaml"
+    cfg.write_text(yaml.safe_dump(conf))
+    ckpt = _random_ckpt(conf, tmp)
+    out = tmp / f"{label}_out"
+    _zero_launches()
+    t = time.perf_counter()
+    with _TimedReads(dataset_cls) as reads:
+        scores = render_eval.main(["--config", str(cfg), "--ckpt", str(ckpt),
+                                   "--out", str(out), "--n", str(n)])
+    seconds = time.perf_counter() - t
+    launches = _launches()
+    pngs = sorted(p.name for p in (out / "visualizations").iterdir())
+    log(f"{label}: render_eval --n {n}: {len(pngs)} PNGs, scores {scores}; "
+        f"reader {reads.per_sample():.4f} s per sample, the rest "
+        f"{(seconds - sum(reads.seconds)) / n:.4f} s per image (render, "
+        f"PNGs, scores), {seconds:.3f} s in all [{card}]; launches "
+        f"{launches}")
+    check(launches == _expect(n * per_image, n * per_image, n * per_image),
+          f"{label}: launches {launches}, expected {per_image} of K1, K2 and "
+          f"K4 per image")
+    check(len(pngs) == 4 * n and all(np.isfinite(v) for v in scores.values()),
+          f"{label}: wrote {pngs}, scores {scores}")
+    return scores
+
+
+def phase_dtu_eval(root: Path, card):
+    """render_eval of the fast DTU preset on the DTU tree, then the reader
+    alone on four samples."""
+    from diner_tpu_torch.data.dtu import DTUDataset
+
+    hw = (int(512 * DTU_DOWNSAMPLE), int(640 * DTU_DOWNSAMPLE))
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        _eval_preset("dtu_eval", DTU_PRESET, _dtu_data(root), DTUDataset, 2,
+                     hw, card, Path(tmp))
+    ds = DTUDataset(root, stage="val", split_dir=root / "splits",
+                    downsample=DTU_DOWNSAMPLE)
+    idcs = (1, 60, 200, 342)
+    t = time.perf_counter()
+    samples = [ds[i] for i in idcs]
+    seconds = (time.perf_counter() - t) / len(idcs)
+    h, w = samples[0]["target_rgb"].shape[:2]
+    log(f"dtu_eval: the reader alone, one thread: {seconds:.4f} s per sample"
+        f" at downsample {DTU_DOWNSAMPLE} ({h}x{w}; 5 RGB PNGs and 8 uint16 "
+        f"PNGs at 512x640) [{card}]")
+
+
+def write_facescape_tree(root: Path):
+    """One FaceScape subject ("001", expression 01) at 256x256: 13 x 5
+    cams on a sphere of radius 1.6 m about the head (-y is frontal, z up),
+    each with its RGBA image, uint16 TransMVSNet depth and confidence PNGs
+    and cameras.json."""
+    import numpy as np
+
+    from diner_tpu_torch.image_ops.png import write_png
+
+    H_, W_ = FACESCAPE_HW
+    K = np.array([[1.1 * W_, 0, W_ / 2], [0, 1.1 * W_, H_ / 2], [0, 0, 1]],
+                 np.float32)
+    exts = [_lookat(1.6 * np.array([np.sin(az) * np.cos(el),
+                                    -np.cos(az) * np.cos(el), np.sin(el)]),
+                    np.array([0.0, 0.0, -1.0]))
+            for el in np.radians(np.linspace(-40, 40, 5))
+            for az in np.radians(np.linspace(-90, 90, 13))]
+    scan = root / "001" / "01"
+    cams = {}
+    for i, (e, (rgb, alpha, depth)) in enumerate(zip(exts, _sphere_views(
+            H_, W_, 0.5, exts, K))):
+        cams[str(i)] = {"extrinsics": e[:3].tolist(),
+                        "intrinsics": K.tolist()}
+        view = scan / f"view_{i:05d}"
+        view.mkdir(parents=True)
+        write_png(view / "rgba_colorcalib.png",
+                  _u8(np.concatenate([rgb, alpha], -1)))
+        d = depth[..., 0]
+        write_png16_adaptive(view / "depth_TransMVSNet.png",
+                             np.round(d / 1e-4))
+        write_png16_adaptive(view / "depth_TransMVSNet_conf.png",
+                             np.round(np.where(d > 0, 0.9, 0) / 1e-4))
+    (scan / "cameras.json").write_text(json.dumps(cams))
+
+
+def phase_facescape_eval(card):
+    from diner_tpu_torch.data.facescape import FacescapeDataset
+
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        tmp = Path(tmp)
+        write_facescape_tree(tmp / "facescape")
+        data = {"module": "FacescapeDataset", "kwargs": {
+            "root": str(tmp / "facescape"), "meta_dir": str(tmp / "meta"),
+            "val_subjects": ["001"]}}
+        _eval_preset("facescape_eval", FACESCAPE_PRESET, data,
+                     FacescapeDataset, 1, FACESCAPE_HW, card, tmp)
+
+
+def write_multiface_tree(root: Path, meta_dir: Path):
+    """One MultiFace subject, sequence and frame at the raw 2048x1334
+    (H x W): a KRT rig of 5 cams at 1 m (mm units), the 4 corner ones the
+    split's reference cams and the centre one the target; RGB frames,
+    masks, and uint16 depths at the 256x160 the reader aligns to.
+    Returns the split config."""
+    import numpy as np
+    from PIL import Image
+
+    from diner_tpu_torch.data.codecs import nearest_resize
+
+    H_, W_ = MULTIFACE_RAW
+    K = np.array([[1300.0, 0, W_ / 2], [0, 1300.0, H_ / 2], [0, 0, 1]],
+                 np.float32)
+    angles = [(-0.4, -0.25), (0.4, -0.25), (0.4, 0.25), (-0.4, 0.25),
+              (0.0, 0.0)]   # the reference cams in order round, the target
+    exts = [_lookat(np.array([np.sin(az) * np.cos(el), np.sin(el),
+                              -np.cos(az) * np.cos(el)]),
+                    np.array([0.0, -1.0, 0.0])) for az, el in angles]
+    subj, seq, names = "m--20180227--0000--0000000--GHS", "E001_Neutral", [
+        f"40010{i}" for i in range(len(exts))]
+    krt = []
+    for name, e in zip(names, exts):
+        rt = e[:3].astype(np.float64)
+        rt[:, 3] *= 1000.0
+        krt += [name, *(" ".join(str(v) for v in r) for r in K),
+                "0 0 0 0 0", *(" ".join(str(v) for v in r) for r in rt), ""]
+    (root / subj).mkdir(parents=True)
+    (root / subj / "KRT").write_text("\n".join(krt) + "\n")
+    h, w = (H_ // 8) // 32 * 32, (W_ // 8) // 32 * 32
+    for name, (rgb, alpha, depth) in zip(names, _sphere_views(
+            H_, W_, 0.35, exts, K)):
+        for kind, img in (("images", _u8(rgb)), ("masks", _u8(alpha[..., 0]))):
+            (root / subj / kind / seq / name).mkdir(parents=True)
+            Image.fromarray(img).save(root / subj / kind / seq / name
+                                      / "000001.png")
+        (root / subj / "depths" / seq / name).mkdir(parents=True)
+        write_png16_adaptive(
+            root / subj / "depths" / seq / name / "000001.png",
+            np.round(nearest_resize(depth[..., 0], h, w) / 1e-4))
+    centers = [(-e[:3, :3].T @ e[:3, 3] * 1000.0).tolist() for e in exts[:4]]
+    split = {"val": {"subjects": [subj], "sequences": [seq],
+                     "ref_centers": centers},
+             "train": {"subjects": [], "sequences": [], "ref_centers": []}}
+    meta_dir.mkdir(parents=True)
+    (meta_dir / "split.json").write_text(json.dumps(split))
+    return meta_dir / "split.json"
+
+
+def phase_multiface_eval(card):
+    from diner_tpu_torch.data.multiface import MultiFaceDataset
+
+    h = (MULTIFACE_RAW[0] // 8) // 32 * 32
+    w = (MULTIFACE_RAW[1] // 8) // 32 * 32
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        tmp = Path(tmp)
+        split = write_multiface_tree(tmp / "multiface", tmp / "meta")
+        data = {"module": "MultiFaceDataset", "kwargs": {
+            "root": str(tmp / "multiface"), "downsample": 8,
+            "split_config": str(split), "meta_dir": str(tmp / "meta")}}
+        ds = MultiFaceDataset(**data["kwargs"])
+        check(len(ds) == 1 and ds[0]["target_rgb"].shape == (h, w, 3),
+              f"multiface: {len(ds)} metas, expected the centre cam alone")
+        log(f"multiface_eval: raw frames {MULTIFACE_RAW[0]}x"
+            f"{MULTIFACE_RAW[1]}, downsample 8 aligned to {h}x{w}")
+        _eval_preset("multiface_eval", MULTIFACE_PRESET, data,
+                     MultiFaceDataset, 1, (h, w), card, tmp)
+
+
+def phase_sweep(root: Path, card):
+    """create_cam_sweep of the random fast-DTU model on the DTU val set: one
+    sweep of SWEEP_FRAMES frames, K1, K2 and K4 20 times a frame."""
+    import torch
+
+    from diner_tpu_torch.cli.build import build_diner
+    from diner_tpu_torch.core.config import load_config
+    from diner_tpu_torch.data.dtu import DTUDataset
+    from diner_tpu_torch.eval.sweep import create_cam_sweep
+
+    conf = load_config(DTU_PRESET)
+    ds = DTUDataset(root, stage="val", split_dir=root / "splits",
+                    downsample=DTU_DOWNSAMPLE)
+    torch.manual_seed(0)
+    model = build_diner(conf, ds.znear, ds.zfar)
+
+    def render(batch, target_ext, seed):
+        rgb, depth = model.render_batch(batch, target_extrinsics=target_ext,
+                                        seed=seed, device="cuda")
+        return rgb.cpu().numpy(), depth.cpu().numpy()
+
+    H_, W_ = int(512 * DTU_DOWNSAMPLE), int(640 * DTU_DOWNSAMPLE)
+    per_frame = -(-H_ * W_ // model.render_cfg.eval_chunk_rays)
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        _zero_launches()
+        t = time.perf_counter()
+        create_cam_sweep(render, ds, Path(tmp), nframes=SWEEP_FRAMES,
+                         n_cam_sweeps=1, fps=5)
+        seconds = time.perf_counter() - t
+        launches = _launches()
+        written = sorted(p.name for p in Path(tmp).iterdir())
+        log(f"sweep: {SWEEP_FRAMES} frames at {H_}x{W_} in {seconds:.3f} s "
+            f"with set-up; wrote {written} [{card}]; launches {launches}")
+    n = SWEEP_FRAMES * per_frame
+    check(launches == _expect(n, n, n),
+          f"sweep: launches {launches}, expected {per_frame} of K1, K2 and K4"
+          f" a frame")
+    check(written == ["scan1-0-ref_imgs.jpg", "scan1-0.mp4"],
+          f"sweep wrote {written}")
+
+
+def phase_dtu_train(root: Path, card):
+    """cli/train at train_dtu.yaml's widths from the DTU tree (343 metas),
+    batch 4, DTU_TRAIN_STEPS steps."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from diner_tpu_torch.cli import train as train_cli
+    from diner_tpu_torch.core.config import load_config
+    from diner_tpu_torch.data.dtu import DTUDataset
+
+    conf = load_config(TRAIN_CONFIG)
+    for split in ("train", "val"):
+        conf["data"][split]["dataset"] = _dtu_data(root)
+    conf["data"]["train"]["dataloader"]["kwargs"]["batch_size"] = TRAIN_SB
+    conf["trainer"] = {"kwargs": {"max_steps": DTU_TRAIN_STEPS,
+                                  "val_check_interval": None}}
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        tmp = Path(tmp)
+        cfg = tmp / "train.yaml"
+        cfg.write_text(yaml.safe_dump(conf))
+        _zero_launches()
+        t = time.perf_counter()
+        with _TimedReads(DTUDataset) as reads:
+            train_cli.main([str(cfg), "--run-dir", str(tmp / "run"),
+                            "--log-every", "1"])
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        lines = [json.loads(x) for x in
+                 (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+    launches = _launches()
+    check(launches == _expect(k4=DTU_TRAIN_STEPS,
+                              k4_backward=DTU_TRAIN_STEPS),
+          f"dtu_train: launches {launches}, expected one K4 and one K4 "
+          f"backward a step")
+    check([x["step"] for x in lines] == list(range(DTU_TRAIN_STEPS))
+          and all(np.isfinite(v) for x in lines for v in x.values())
+          and all(x["skipped_nonfinite"] == 0.0 for x in lines),
+          f"dtu_train metrics {lines}")
+    s_step = [round(1.0 / x["steps_per_sec"], 4) for x in lines]
+    log(f"dtu_train: {DTU_TRAIN_STEPS} steps at batch {TRAIN_SB} from 343 "
+        f"DTU metas in {seconds:.2f} s with set-up; s/step {s_step}; totals "
+        f"{[round(x['total'], 5) for x in lines]}; the loader's reads "
+        f"{len(reads.seconds)} samples at {reads.per_sample():.4f} s each "
+        f"(4 threads) [{card}]; launches {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -900,6 +1409,15 @@ def main() -> int:
         phase_quality()
         phase_eval(card)
         launches["composite_rays_backward"] = phase_train(card)
+        DATA_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+            dtu_root = Path(tmp) / "dtu"
+            write_dtu_tree(dtu_root, card)
+            phase_dtu_eval(dtu_root, card)
+            phase_facescape_eval(card)
+            phase_multiface_eval(card)
+            phase_sweep(dtu_root, card)
+            phase_dtu_train(dtu_root, card)
         for k in kernels:
             k["launches"] = launches[k["name"]]
     except Exception:  # every phase failure ends the run without a result

@@ -4,8 +4,9 @@ diner_tpu.cli.build).
 A config has `data`, `nerf`, `renderer` and `optimizer` sections with
 module + kwargs wiring: datasets resolve against the registry, models
 through typed constructors; the optimizer section gives the loss weights and
-patch settings. Registered datasets: SyntheticSphereDataset (the DTU,
-FaceScape and MultiFace readers are not ported yet).
+patch settings. Registered datasets: DTUDataset (alias DTUDataSet),
+FacescapeDataset (alias FacescapeDataSet), MultiFaceDataset and
+SyntheticSphereDataset.
 """
 
 from __future__ import annotations
@@ -16,12 +17,21 @@ from typing import Any, Dict
 from diner_tpu_torch.core.config import build as registry_build
 from diner_tpu_torch.core.config import register, resolve
 from diner_tpu_torch.core.types import RenderConfig
+from diner_tpu_torch.data.dtu import DTUDataset
+from diner_tpu_torch.data.facescape import FacescapeDataset
 from diner_tpu_torch.data.loader import BatchLoader
+from diner_tpu_torch.data.multiface import MultiFaceDataset
 from diner_tpu_torch.data.synthetic import SyntheticSphereDataset
 from diner_tpu_torch.models.diner import DINER
 from diner_tpu_torch.models.pixelnerf import PixelNeRF
 
-register("SyntheticSphereDataset")(SyntheticSphereDataset)
+# the second names of DTU and FaceScape are the reference's class names
+for _name, _cls in (("DTUDataset", DTUDataset), ("DTUDataSet", DTUDataset),
+                    ("FacescapeDataset", FacescapeDataset),
+                    ("FacescapeDataSet", FacescapeDataset),
+                    ("MultiFaceDataset", MultiFaceDataset),
+                    ("SyntheticSphereDataset", SyntheticSphereDataset)):
+    register(_name)(_cls)
 
 
 def build_dataset(conf: Dict[str, Any], stage: str):
@@ -36,13 +46,15 @@ def build_dataset(conf: Dict[str, Any], stage: str):
     return registry_build(dconf)
 
 
-def build_loader(conf: Dict[str, Any], dataset, shuffle_default: bool,
-                 seed: int = 0) -> BatchLoader:
-    """The BatchLoader of one `data` split's `dataloader` section."""
+def build_loader(conf: Dict[str, Any], dataset,
+                 shuffle_default: bool) -> BatchLoader:
+    """The BatchLoader of one `data` split's `dataloader` section. Its
+    shuffle seed is the loader's default, 0, whatever the run's seed, as
+    the JAX package's build_loader has it."""
     kw = dict(conf.get("dataloader", {}).get("kwargs", {}))
     return BatchLoader(dataset, batch_size=int(kw.get("batch_size", 1)),
                        shuffle=bool(kw.get("shuffle", shuffle_default)),
-                       seed=seed, num_threads=int(kw.get("num_workers", 4)))
+                       num_threads=int(kw.get("num_workers", 4)))
 
 
 def nerf_kwargs(conf: Dict[str, Any]) -> Dict[str, Any]:

@@ -8,9 +8,11 @@ Builds the datasets, the loader and DINER from the config, snapshots the
 config and the git revision into the run directory, and trains (see
 train/loop.py): metrics.jsonl, checkpoints under <run>/ckpts (which
 `cli.render_eval --ckpt` renders and scores), and validation renders scored
-into <run>/eval_<step>/. Runs on the CUDA device unless --device cpu. Not
-ported yet: --multihost (training across processes) and the cam-sweep
-videos of validation; the CLI says so when a run asks for them.
+into <run>/eval_<step>/, with cam-sweep videos in <run>/eval_<step>/
+cam_sweeps/ when the optimizer section has cam_sweep_settings. Runs on the
+CUDA device unless --device cpu. --seed seeds the model and the draws; the
+loader shuffles with its own seed, 0, as the JAX package's does. Not ported
+yet: --multihost (training across processes).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ def main(argv=None):
                          "continues a previous invocation")
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0,
-                    help="model init, shuffling and draws")
+                    help="model init and draws (not the loader's shuffle)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=50,
                     help="steps between metrics.jsonl lines")
@@ -73,6 +75,7 @@ def main(argv=None):
     from diner_tpu_torch.core.device import resolve_device
     from diner_tpu_torch.eval.predict import create_prediction_folder
     from diner_tpu_torch.eval.suite import evaluate_folder
+    from diner_tpu_torch.eval.sweep import create_cam_sweep
     from diner_tpu_torch.train.loop import MetricLogger, train
 
     dev = resolve_device(args.device)
@@ -92,17 +95,14 @@ def main(argv=None):
     torch.manual_seed(args.seed)
     train_set = build_dataset(conf["data"]["train"], stage="train")
     val_set = build_dataset(conf["data"]["val"], stage="val")
-    train_loader = build_loader(conf["data"]["train"], train_set, True,
-                                seed=args.seed)
+    train_loader = build_loader(conf["data"]["train"], train_set, True)
     model = build_diner(conf, znear=train_set.znear, zfar=train_set.zfar)
 
     trainer_kw = conf.get("trainer", {}).get("kwargs", {})
     max_steps = args.max_steps or int(trainer_kw.get("max_steps", 100_000))
     opt_conf = conf.get("optimizer", {}).get("kwargs", {})
     n_score = int(opt_conf.get("n_samples_score_eval", 16))
-    if opt_conf.get("cam_sweep_settings"):
-        print("cam_sweep_settings: the cam-sweep videos are not ported to "
-              "diner_tpu_torch yet; validation renders and scores only")
+    sweep_kw = dict(opt_conf.get("cam_sweep_settings") or {})
     val_logger = MetricLogger(logdir)
 
     def val_fn(state, step):
@@ -118,6 +118,16 @@ def main(argv=None):
                                           n_samples=n_score)
         scores = evaluate_folder(visdir, eval_dir)
         val_logger.log(step, {f"valscores_{k}": v for k, v in scores.items()})
+
+        if sweep_kw and hasattr(val_set, "get_cam_sweep_extrinsics"):
+            def sweep_render(batch, target_ext, seed):
+                rgb, depth = state.model.render_batch(
+                    batch, target_extrinsics=target_ext, seed=seed,
+                    device=dev)
+                return rgb.cpu().numpy(), depth.cpu().numpy()
+
+            create_cam_sweep(sweep_render, val_set, eval_dir / "cam_sweeps",
+                             **sweep_kw)
 
     opt_kw = optimizer_kwargs(conf)
     try:

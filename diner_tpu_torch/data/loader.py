@@ -18,7 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from diner_tpu_torch.data.synthetic import collate
+from diner_tpu_torch.data.contract import collate, to_device_batch
 
 
 def _process_grid():
@@ -49,11 +49,6 @@ def process_local_slice(n: int, process_index: Optional[int] = None,
             idx.append(pos - n)
             pos += pc
     return idx
-
-
-def arrays_only(batch):
-    """The numpy-array entries of a collated batch."""
-    return {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
 class BatchLoader:
@@ -135,7 +130,7 @@ class BatchLoader:
                                      (b + 1) * self.batch_size]
                         batch = collate(list(pool.map(self._fetch, chunk)))
                         if self.arrays_only:
-                            batch = arrays_only(batch)
+                            batch = to_device_batch(batch)
                         if not put(batch):
                             return
             except BaseException as e:  # raised in the consumer: an error

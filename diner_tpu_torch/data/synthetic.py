@@ -1,70 +1,14 @@
-"""Procedural multi-view sphere scenes with analytic depth, and the sample-dict
-contract they follow.
-
-A numpy copy of `diner_tpu.data.synthetic` and the parts of
-`diner_tpu.data.contract` it needs: the same seed gives the same arrays, so
-the port and the JAX package render the same scenes. Layout is NHWC:
-
-| key               | shape            | meaning                              |
-|-------------------|------------------|--------------------------------------|
-| target_rgb        | (H, W, 3) 0..1   | GT novel view                        |
-| target_alpha      | (H, W, 1)        | fg mask                              |
-| target_extrinsics | (4, 4)           | world->cam, OpenCV                   |
-| target_intrinsics | (3, 3)           | K                                    |
-| src_rgbs          | (NV, H, W, 3)    | source views                         |
-| src_alphas        | (NV, H, W, 1)    | source fg masks                      |
-| src_depths        | (NV, H, W, 1)    | MVS depth, metric, 0 = invalid       |
-| src_depth_stds    | (NV, H, W, 1)    | per-pixel sigma                      |
-| src_extrinsics    | (NV, 4, 4)       | source cams                          |
-| src_intrinsics    | (NV, 3, 3)       | source K                             |
-| sample_name       | str              | bookkeeping (non-array)              |
+"""Procedural multi-view sphere scenes with analytic depth (a numpy copy of
+diner_tpu.data.synthetic): the same seed gives the same arrays, so the port
+and the JAX package render the same scenes. Samples follow the contract of
+data/contract.py.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
-
 import numpy as np
 
-SAMPLE_KEYS = (
-    "target_rgb", "target_alpha", "target_extrinsics", "target_intrinsics",
-    "src_rgbs", "src_alphas", "src_depths", "src_depth_stds",
-    "src_extrinsics", "src_intrinsics",
-)
-
-
-def validate_sample(sample: Dict) -> None:
-    """Raise on contract violations (shapes, depth range)."""
-    for k in SAMPLE_KEYS:
-        if k not in sample:
-            raise KeyError(f"sample missing contract key {k!r}")
-    H, W, _ = sample["target_rgb"].shape
-    NV = sample["src_rgbs"].shape[0]
-    expect = {
-        "target_rgb": (H, W, 3), "target_alpha": (H, W, 1),
-        "target_extrinsics": (4, 4), "target_intrinsics": (3, 3),
-        "src_rgbs": (NV, H, W, 3), "src_alphas": (NV, H, W, 1),
-        "src_depths": (NV, H, W, 1), "src_depth_stds": (NV, H, W, 1),
-        "src_extrinsics": (NV, 4, 4), "src_intrinsics": (NV, 3, 3),
-    }
-    for k, s in expect.items():
-        if tuple(sample[k].shape) != s:
-            raise ValueError(
-                f"{k}: expected shape {s}, got {tuple(sample[k].shape)}")
-    if np.any(np.asarray(sample["src_depths"]) < 0):
-        raise ValueError("src_depths must be >= 0 (0 marks invalid)")
-
-
-def collate(samples: List[Dict]) -> Dict:
-    """Stack samples into a batch; array keys only, others listed."""
-    out = {}
-    for k in samples[0]:
-        v0 = samples[0][k]
-        if isinstance(v0, np.ndarray):
-            out[k] = np.stack([np.asarray(s[k]) for s in samples])
-        else:
-            out[k] = [s[k] for s in samples]
-    return out
+from diner_tpu_torch.data.contract import validate_sample
 
 
 def _lookat(eye, target=(0.0, 0.0, 0.0), up=(0.0, -1.0, 0.0)):
@@ -185,3 +129,12 @@ class SyntheticSphereDataset:
         }
         validate_sample(sample)
         return sample
+
+    def get_cam_sweep_extrinsics(self, nframes, scan_idx=0, radius=2.2):
+        """Horizontal circle sweep around the scene (the cam-sweep method
+        every dataset provides)."""
+        exts = []
+        for a in np.linspace(0, 2 * np.pi, nframes, endpoint=False):
+            eye = np.array([radius * np.sin(a), 0.0, -radius * np.cos(a)])
+            exts.append(_lookat(eye))
+        return np.stack(exts)

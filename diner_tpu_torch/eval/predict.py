@@ -17,7 +17,7 @@ from typing import Optional
 
 import numpy as np
 
-from diner_tpu_torch.data.synthetic import collate
+from diner_tpu_torch.data.contract import collate
 from diner_tpu_torch.eval.suite import SUFFIXES
 from diner_tpu_torch.image_ops.colormap import colormap
 from diner_tpu_torch.image_ops.png import write_png

@@ -9,6 +9,29 @@ from __future__ import annotations
 import torch
 
 
+def invert_pose(extrinsics):
+    """Invert rigid world->cam transforms (..., 4, 4) -> cam->world
+    (..., 4, 4)."""
+    rot = extrinsics[..., :3, :3].transpose(-1, -2)
+    t = -(rot @ extrinsics[..., :3, 3:4])
+    out = torch.zeros_like(extrinsics)
+    out[..., :3, :3] = rot
+    out[..., :3, 3:4] = t
+    out[..., 3, 3] = 1.0
+    return out
+
+
+def ray_closest_points(ray1, ray2):
+    """The points of two rays (6,) [origin xyz, direction xyz] where they
+    come closest: the least-squares ray parameters by the SVD's
+    pseudo-inverse (the minimum-norm solution, as jnp.linalg.lstsq's).
+    Returns (x1, x2), each (3,)."""
+    b = (ray2[:3] - ray1[:3])[:, None]                     # (3, 1)
+    a = torch.stack([ray1[3:], -ray2[3:]], dim=-1)          # (3, 2)
+    t = (torch.linalg.pinv(a) @ b).flatten()
+    return ray1[:3] + ray1[3:] * t[0], ray2[:3] + ray2[3:] * t[1]
+
+
 def transform_points(pose, xyz):
     """Apply rigid transforms: pose (..., 4, 4) or (..., 3, 4); xyz (..., N, 3)
     with broadcastable batch dims. Returns (..., N, 3)."""

@@ -5,7 +5,8 @@ its own by nvcc into `build/diner_tpu_torch/lib<name>-<hash>.so` at the repo
 root, then loaded with ctypes. The file name carries a hash of the source, so
 an edited kernel is rebuilt and a built one is reused. Nothing is built at
 import time: a kernel is built at its first launch, or all of them in
-parallel by `build_all()`.
+parallel by `build_all()`. A host library, `csrc/<name>.cpp`, is built the
+same way by the C++ compiler (`host_library`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diner_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 # dynamic shared memory one block may use on Hopper (227 KB); a launch above
 # 48 KB opts in with cudaFuncSetAttribute
 MAX_SHARED_BYTES = 232_448
@@ -70,6 +72,37 @@ def _finish_build(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+
+
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (c++ or g++) found: the host "
+                       "library csrc/*.cpp of diner_tpu_torch is built with it")
+
+
+def host_library(name: str) -> Path:
+    """Build `csrc/<name>.cpp`, a host library, with the C++ compiler into
+    `build/diner_tpu_torch/lib<name>-<hash>.so` unless it is built, and
+    return its path."""
+    src = CSRC / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(HOST_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_cxx(), *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"c++ failed for csrc/{name}.cpp (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def kernel_sources() -> List[str]:

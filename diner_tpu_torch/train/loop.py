@@ -84,7 +84,8 @@ def train(model, train_batches: Iterable, logdir, *, lr: float = 1e-4,
     """Train `model` (a DINER) on `device` (CUDA unless the caller asks for
     "cpu") for steps [start, max_steps), start being 0 or, with `resume`,
     the steps completed in <logdir>/ckpts. train_batches yields collated
-    numpy batches and is iterated anew when it runs out. val_fn(state, step)
+    numpy batches and is iterated anew when it runs out; its first batch is
+    dropped, as the JAX loop spends it on initialization. val_fn(state, step)
     runs validation side effects every val_every steps and once at the
     end, after the final checkpoint."""
     dev = resolve_device(device)
@@ -99,6 +100,10 @@ def train(model, train_batches: Iterable, logdir, *, lr: float = 1e-4,
 
     try:
         it = iter(train_batches)
+        # the JAX loop draws the first batch for create_train_state's init
+        # and trains from the second, on fresh runs and resumes alike; this
+        # one drops it, so that its step s trains on JAX's step s batch
+        next(it)
         t0 = time.perf_counter()
         last_logged = start_step - 1
         for step in range(start_step, max_steps):

@@ -162,30 +162,31 @@ def test_colormap_matches_matplotlib():
                                   j_colormap(x, vmin=-0.5, vmax=1.2))
 
 
-def _filtered_png(path, img):
-    """An RGB PNG whose rows cycle through all five filter types."""
-    H, W, C = img.shape
-    raw = img.reshape(H, W * C).astype(np.int64)
+def _filtered_png(path, img, kinds=(0, 1, 2, 3, 4)):
+    """A PNG of a uint8 RGB (H, W, 3) or uint16 grey (H, W) image whose row y
+    is filtered by kinds[y % len(kinds)] (0 None, 1 Sub, 2 Up, 3 Average, 4
+    Paeth; another type leaves the row as it is), as an adaptive encoder
+    chooses them."""
+    if img.dtype == np.uint16:
+        H, W = img.shape
+        bpp, header = 2, (16, 0)       # bytes a pixel; bit depth, grey
+        raw = img.astype(">u2").view(np.uint8).reshape(H, 2 * W)
+    else:
+        H, W, bpp = img.shape
+        header = (8, 2)                # RGB
+        raw = img.reshape(H, W * bpp)
+    raw = raw.astype(np.int64)
     rows = []
     for y in range(H):
-        kind = y % 5
-        cur = raw[y]
+        kind, cur = kinds[y % len(kinds)], raw[y]
         up = raw[y - 1] if y else np.zeros_like(cur)
-        left = np.concatenate([np.zeros(C, np.int64), cur[:-C]])
-        ul = np.concatenate([np.zeros(C, np.int64), up[:-C]])
-        if kind == 0:
-            pred = np.zeros_like(cur)
-        elif kind == 1:
-            pred = left
-        elif kind == 2:
-            pred = up
-        elif kind == 3:
-            pred = (left + up) // 2
-        else:
-            p = left + up - ul
-            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
-            pred = np.where((pa <= pb) & (pa <= pc), left,
-                            np.where(pb <= pc, up, ul))
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        p = left + up - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+        pred = {1: left, 2: up, 3: (left + up) // 2,
+                4: np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, ul))}.get(kind, 0 * cur)
         rows.append(bytes([kind]) + ((cur - pred) % 256).astype(
             np.uint8).tobytes())
 
@@ -195,7 +196,7 @@ def _filtered_png(path, img):
 
     Path(path).write_bytes(
         b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, *header, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(b"".join(rows)))
         + chunk(b"IEND", b""))
 

@@ -598,7 +598,7 @@ def test_from_jax_takes_a_whole_diner_variables_tree():
 def test_train_cli_on_cpu_then_render_eval_ckpt(tmp_path, capsys):
     """python -m diner_tpu_torch.cli.train configs/train_synthetic.yaml
     --max-steps 3 --device cpu: metrics.jsonl, a checkpoint at step 3 and
-    its validation; then cli.render_eval --ckpt renders and scores from
+    its validation with the config's cam sweep; then cli.render_eval --ckpt renders and scores from
     it; a resume to 4 steps replays none."""
     from pathlib import Path
 
@@ -608,7 +608,9 @@ def test_train_cli_on_cpu_then_render_eval_ckpt(tmp_path, capsys):
     state = train_cli.main([str(cfg), "--run-dir", str(run), "--max-steps",
                             "3", "--device", "cpu"])
     assert state.step == 3
-    assert "cam-sweep videos are not ported" in capsys.readouterr().out
+    sweeps = run / "eval_000003" / "cam_sweeps"
+    assert sorted(p.name for p in sweeps.iterdir()) == [
+        "synthetic_0000-ref_imgs.jpg", "synthetic_0000.mp4"]
     assert (run / "config.yaml").exists() and (run / "GIT_REVISION").exists()
     lines = [json.loads(x) for x in
              (run / "metrics.jsonl").read_text().splitlines()]
