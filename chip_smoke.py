@@ -31,8 +31,10 @@ last line:
      B 4096, K 40) vs the gradient of the plain version by autograd, within
      1e-5 + 1e-4 |plain|, white background off and on, about one sigma in 8
      exactly 0 (the relu tie); also at ragged shapes (SB 2, B 1001, K 1, 5,
-     37, 40 and 64: a partial last block); through the autograd Function
-     too; times;
+     37, 40 and 64 in registers, 65 just above the register cap and 1024
+     in shared-memory tiles: a partial last block); through the autograd
+     Function too; the kernel's registers, shared memory and spills from
+     kernels/sass.py; times;
   7. serving at full width: RenderServer.from_preset(configs/
      evaluate_diner_on_dtu_fast.yaml) (ResNet34 + batch norm, ResnetFC
      512x5, bf16, int8 quad latent, A=256 paired anchors, 1000 candidates
@@ -115,9 +117,9 @@ K3_OPS_ERF = 40
 # weight, and four multiply-adds
 K4_OPS_PER_SAMPLE = 25
 # K4's backward per sample: the forward's delta and expf (~12), v (9),
-# dalpha/dsigma (2), two scan steps of the forward product (5 steps) and
-# the reverse affine maps (5 steps, 3 operations each), S, g_alpha,
-# g_sigma and the three g_rgb
+# dalpha/dsigma (2), the row scans of the forward product (3 steps) and of
+# the reverse affine maps (3 steps, 3 operations each), the rows' chaining,
+# S, g_alpha, g_sigma and the three g_rgb
 K4_BWD_OPS_PER_SAMPLE = 45
 
 H, W, NV = 256, 320, 4   # the DTU evaluation image and its source views
@@ -454,7 +456,10 @@ def phase_k4_backward(flush):
                                          composite_rays_backward,
                                          composite_rays_backward_plain)
     from diner_tpu_torch.kernels.cases import composite_grad_inputs
-    from diner_tpu_torch.kernels.composite import BACKWARD_THREADS
+    from diner_tpu_torch.kernels.composite import (BACKWARD_GROUP,
+                                                   BACKWARD_MAX_PER_LANE,
+                                                   backward_geometry)
+    from diner_tpu_torch.kernels.sass import report
 
     def on_card(seed, SB, B, K):
         return [torch.from_numpy(x).cuda()
@@ -481,12 +486,25 @@ def phase_k4_backward(flush):
         f"within 1e-5 + 1e-4 |plain| of autograd through the plain version "
         f"(scans in another order), max abs diff {err:.3e}, white "
         f"background off and on, 1 sigma in 8 exactly 0")
-    ragged = (1, 5, 37, 40, 64)
-    check(2 * 1001 % (BACKWARD_THREADS // 32) != 0,
-          "the rays fill the last block")
+    # K odd, below, at and above the register cap (one tile of
+    # BACKWARD_GROUP * BACKWARD_MAX_PER_LANE samples), and 1024 (tiles in
+    # shared memory)
+    cap = BACKWARD_GROUP * BACKWARD_MAX_PER_LANE
+    ragged = (1, 5, 37, 40, 64, cap + 1, 1024)
+    check(all(2 * 1001 * BACKWARD_GROUP % backward_geometry(2 * 1001, k)[1]
+              for k in ragged), "the rays fill the last block")
     errs = [compare(*on_card(50 + k, 2, 1001, k)) for k in ragged]
-    log(f"K4 backward ragged SB=2 B=1001 K in {ragged}: within 1e-5 + 1e-4 "
-        f"|plain|, max abs diff {max(errs):.3e}")
+    shared = [backward_geometry(2 * 1001, k)[2] for k in ragged]
+    log(f"K4 backward ragged SB=2 B=1001 K in {ragged} (register cap {cap}; "
+        f"shared memory {shared} B): within 1e-5 + 1e-4 |plain|, max abs "
+        f"diff {max(errs):.3e}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for func, k in report("composite_bwd", ROOT / "diner_tpu_torch"
+                              / "csrc", Path(tmp))["kernels"].items():
+            log(f"K4 backward {func}: {k.get('registers')} registers, "
+                f"{k.get('smem')} B static shared memory, spills "
+                f"{k.get('spill_stores')}/{k.get('spill_loads')} B, "
+                f"{k['instructions']} SASS instructions")
     # through the autograd Function: one forward and one backward launch
     rays, z, field, g_rgb, g_depth, g_acc = inputs
     before = (KERNELS["composite_rays"].launches,

@@ -19,11 +19,23 @@ acc), and dispatches on the tensors' device: a CPU tensor runs the plain
 version (autograd differentiates it), a CUDA tensor launches the kernel.
 Where the field's outputs require grad, the launch goes through
 `CompositeFunction`, whose backward is the kernel of `csrc/composite_bwd.cu`
-(a warp a ray, a forward product scan for the transmittance, a reverse scan
-for the suffix sums; its header gives the math). z and the rays get no
-gradient: the sampler runs under no_grad. `composite_rays_backward` and its
-plain version `composite_rays_backward_plain` (autograd through
-`composite_rays_plain`) give the gradient of the field's outputs.
+(its header gives the math). z and the rays get no gradient: the sampler
+runs under no_grad. `composite_rays_backward` and its plain version
+`composite_rays_backward_plain` (autograd through `composite_rays_plain`)
+give the gradient of the field's outputs.
+
+The backward kernel holds a ray's samples in registers: `BACKWARD_GROUP` = 8
+lanes a ray, lane l holding sample l of each of P = ceil(K / 8) rows of 8
+consecutive samples (at most `BACKWARD_MAX_PER_LANE` = 8 rows), so that
+every load and store is coalesced; a 3-step shuffle scan in each row, the
+rows side by side, then the rows chained, forward for the transmittance and
+backward for the suffix sums; g_field is written once and never read. A ray
+of more than 64 samples runs in tiles of 64 and keeps every tile but the
+last in shared memory (`backward_geometry` sizes it, up to `BACKWARD_MAX_K`
+samples). The kernel it replaced (a warp a ray, a scratch round trip
+through g_field) and the designs timed beside this one (P consecutive
+samples a lane at 4, 8 and 16 lanes a ray, directly or staged through
+shared memory; a persistent grid fed by TMA bulk copies) are in PERF.md.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import ctypes
 
 import torch
 
-from diner_tpu_torch.kernels.build import CudaKernel
+from diner_tpu_torch.kernels.build import MAX_SHARED_BYTES, CudaKernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,10 +52,16 @@ _LL = ctypes.c_longlong
 KERNEL = CudaKernel("composite", "composite_rays_launch",
                     [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P])
 BACKWARD = CudaKernel("composite_bwd", "composite_rays_backward_launch",
-                      [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P])
+                      [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I,
+                       _P])
 GROUP = 16      # lanes per ray: kGroup of csrc/composite.cu
 THREADS = 128   # 8 rays a block
-BACKWARD_THREADS = 128   # a warp per ray in csrc/composite_bwd.cu: 4 a block
+# csrc/composite_bwd.cu: kGroup lanes a ray, at most kMaxPerLane rows (a
+# sample each) a lane in registers, at most kMaxThreads threads a block
+BACKWARD_GROUP = 8
+BACKWARD_MAX_PER_LANE = 8
+BACKWARD_THREADS = 128   # 16 rays a block; fewer where shared memory is short
+BACKWARD_MAX_K = 1024
 MAX_BLOCKS = 2 ** 31 - 1
 
 
@@ -66,9 +84,26 @@ def launch_geometry(n_rays: int, K: int):
 
 
 def backward_geometry(n_rays: int, K: int):
-    """The same for the backward kernel: a warp per ray, BACKWARD_THREADS
-    threads a block."""
-    return _geometry(n_rays, K, 32, BACKWARD_THREADS)
+    """The same for the backward kernel: BACKWARD_GROUP lanes per ray, each
+    holding one sample of each of P = min(ceil(K / BACKWARD_GROUP),
+    BACKWARD_MAX_PER_LANE) rows. A ray of more than one tile of
+    BACKWARD_GROUP * P samples keeps every tile but the last in shared
+    memory, 16 bytes a sample, so the block shrinks from BACKWARD_THREADS
+    to 64 threads where that does not fit in MAX_SHARED_BYTES (K above
+    960). Raises ValueError for K < 1, past BACKWARD_MAX_K samples and past
+    the grid's 2^31 - 1 blocks."""
+    if K < 1:
+        raise ValueError(f"a ray needs at least one sample, got K={K}")
+    if K > BACKWARD_MAX_K:
+        raise ValueError(f"K={K} samples a ray is above the backward "
+                         f"kernel's {BACKWARD_MAX_K}")
+    per_lane = min(-(-K // BACKWARD_GROUP), BACKWARD_MAX_PER_LANE)
+    tiles = -(-K // (BACKWARD_GROUP * per_lane))
+    per_thread = (tiles - 1) * per_lane * 16
+    threads = (BACKWARD_THREADS
+               if BACKWARD_THREADS * per_thread <= MAX_SHARED_BYTES else 64)
+    blocks, threads, _ = _geometry(n_rays, K, BACKWARD_GROUP, threads)
+    return blocks, threads, threads * per_thread
 
 
 def composite_outputs(rays, z_samp, out, white_bkgd: bool = False):
@@ -141,7 +176,7 @@ def composite_rays_backward_plain(rays, z_samp, field_out, g_rgb, g_depth,
 def _launch_backward(rays, z_samp, field_out, g_rgb, g_depth, g_acc,
                      white_bkgd):
     SB, B, K = z_samp.shape
-    blocks, threads, _ = backward_geometry(SB * B, K)
+    blocks, threads, shared = backward_geometry(SB * B, K)
     g_field = torch.empty((SB, B * K, 4), dtype=torch.float32,
                           device=z_samp.device)
     if blocks == 0:
@@ -158,7 +193,7 @@ def _launch_backward(rays, z_samp, field_out, g_rgb, g_depth, g_acc,
                         field_out.data_ptr(), g_rgb.data_ptr(),
                         g_depth.data_ptr(), g_acc.data_ptr(),
                         g_field.data_ptr(), SB * B, K, int(white_bkgd),
-                        blocks, threads, stream)
+                        blocks, threads, shared, stream)
     return g_field
 
 

@@ -345,16 +345,24 @@ def test_composite_refuses_grad_off_the_cpu():
 
 def composite_backward_kernel_model(rays, z, out, g_rgb, g_depth, g_acc,
                                     white_bkgd):
-    """csrc/composite_bwd.cu's order of operations in float32 torch: a warp
-    per ray in 32-sample tiles, lanes past K at alpha 0. Pass 1, tiles
-    forward: per lane alpha, v, dalpha/dsigma (half delta at sigma == 0),
-    the warp's Hillis-Steele product scan of t (shfl_up 1, 2, ..., 16), its
-    exclusive shift and the tile carry for T. Pass 2, tiles backward: the
-    reverse scan of the affine maps s -> alpha v + t s (shfl_down 1, ...,
-    16, a lane combining with lane + off while that is in the warp), the
-    exclusive shift, S = a + b s_carry, and the carry F_0(s_carry)."""
+    """csrc/composite_bwd.cu's order of operations in float32 torch: a group
+    of G = BACKWARD_GROUP lanes a ray; tiles of P = min(ceil(K / G),
+    BACKWARD_MAX_PER_LANE) rows of G consecutive samples, lane l holding
+    sample l of every row; samples past K at alpha 0 and v 0. Forward over
+    the tiles: per sample alpha, v, dalpha/dsigma (half delta at sigma ==
+    0); a Hillis-Steele product scan of t in each row (shfl_up 1, 2, 4, the
+    rows side by side), then the rows in order: T = carry * (1 on lane 0,
+    else the exclusive shift), carry times the row's total. Every tile but
+    the last is what the kernel keeps in shared memory. Backward over the
+    tiles: a reverse scan of the maps s -> alpha v + t s in each row
+    (shfl_down 1, 2, 4, a lane combining with lane + off while that is in
+    the group), then the rows from the last: S = a + b s_carry with (a, b)
+    the exclusive shift (the identity on the last lane), and s_carry
+    becoming the row's whole map applied to s_carry."""
+    G, PM = composite.BACKWARD_GROUP, composite.BACKWARD_MAX_PER_LANE
     SB, B, K = z.shape
-    N, T = SB * B, -(-K // 32)
+    N, P = SB * B, min(-(-K // G), PM)
+    n_t = -(-K // (G * P))
     zr, f = z.reshape(N, K), out.reshape(N, K, 4)
     g, gd, ga = g_rgb.reshape(N, 3), g_depth.reshape(N, 1), \
         g_acc.reshape(N, 1)
@@ -367,52 +375,64 @@ def composite_backward_kernel_model(rays, z, out, g_rgb, g_depth, g_acc,
     dads = torch.where(sigma > 0, delta * e,
                        torch.where(sigma == 0, 0.5 * delta, 0.0))
 
-    def tiles(x):  # (N, K) -> (N, T, 32), zero past K
-        return torch.nn.functional.pad(x, (0, T * 32 - K)).reshape(N, T, 32)
+    def tiles(x):  # (N, K) -> (N, tiles, rows, lanes), zero past K
+        return torch.nn.functional.pad(x, (0, n_t * P * G - K)).reshape(
+            N, n_t, P, G)
 
     alpha, v, dads = tiles(1.0 - e), tiles(v), tiles(dads)
     t = (1.0 - alpha) + 1e-10
-    lane = torch.arange(32)
-    trans, carry = torch.empty(N, T, 32), torch.ones(N, 1)
-    for i in range(T):
+    lane = torch.arange(G)
+    trans, carry = torch.empty(N, n_t, P, G), torch.ones(N, 1)
+    for i in range(n_t):
         incl, off = t[:, i], 1
-        while off < 32:
-            up = torch.roll(incl, off, 1)
+        while off < G:
+            up = torch.roll(incl, off, -1)
             incl = torch.where(lane >= off, incl * up, incl)
             off *= 2
-        excl = torch.where(lane == 0, 1.0, torch.roll(incl, 1, 1))
-        trans[:, i] = carry * excl
-        carry = carry * incl[:, 31:]
-    g_sigma, s_carry = torch.empty(N, T, 32), torch.zeros(N, 1)
-    for i in reversed(range(T)):
+        for j in range(P):
+            excl = torch.where(lane == 0, 1.0, torch.roll(incl[:, j], 1, -1))
+            trans[:, i, j] = carry * excl
+            carry = carry * incl[:, j, G - 1:]
+    g_sigma, s_carry = torch.empty(N, n_t, P, G), torch.zeros(N, 1)
+    for i in reversed(range(n_t)):
         a, b, off = alpha[:, i] * v[:, i], t[:, i], 1
-        while off < 32:
-            a2, b2 = torch.roll(a, -off, 1), torch.roll(b, -off, 1)
-            keep = lane + off < 32
+        while off < G:
+            a2, b2 = torch.roll(a, -off, -1), torch.roll(b, -off, -1)
+            keep = lane + off < G
             a, b = torch.where(keep, a + b * a2, a), \
                 torch.where(keep, b * b2, b)
             off *= 2
-        ae = torch.where(lane == 31, 0.0, torch.roll(a, -1, 1))
-        be = torch.where(lane == 31, 1.0, torch.roll(b, -1, 1))
-        S = ae + be * s_carry
-        g_sigma[:, i] = trans[:, i] * (v[:, i] - S) * dads[:, i]
-        s_carry = a[:, :1] + b[:, :1] * s_carry
+        for j in reversed(range(P)):
+            ae = torch.where(lane == G - 1, 0.0, torch.roll(a[:, j], -1, -1))
+            be = torch.where(lane == G - 1, 1.0, torch.roll(b[:, j], -1, -1))
+            S = ae + be * s_carry
+            g_sigma[:, i, j] = trans[:, i, j] * (v[:, i, j] - S) * dads[:, i, j]
+            s_carry = a[:, j, :1] + b[:, j, :1] * s_carry
     w = (alpha * trans).reshape(N, -1)[:, :K]
     g_sigma = g_sigma.reshape(N, -1)[:, :K]
     return torch.cat([w[..., None] * g[:, None], g_sigma[..., None]],
                      -1).reshape(SB, B * K, 4)
 
 
+# K4 backward's cases: below, at and above one row of 8 samples; the
+# plateau configs' 24 and the DTU and FaceScape configs' 40; odd (a partial
+# last row); at the register cap (8 rows of 8), just above it (two tiles,
+# the first in shared memory), and 1024 (16 tiles)
+BACKWARD_KS = (1, 5, 8, 24, 32, 37, 40, 64, 65, 1024)
+
+
 @pytest.mark.parametrize("white", [False, True])
-@pytest.mark.parametrize("K", [1, 5, 32, 37, 40, 64])
+@pytest.mark.parametrize("K", BACKWARD_KS)
 def test_composite_backward_kernel_arithmetic_matches_plain(K, white):
     """K4's backward in its kernel's order of operations against autograd
     through the plain version on the CPU, within 1e-5 + 1e-4 |plain| (the
-    tolerance chip_smoke.py holds the kernel to), at K below, at and above
-    a tile and odd, SB = 2 and B = 101, with about one sigma in 8 exactly
-    0. The plain version's gradient and the model's also agree with a
-    float64 autograd within 1e-6."""
-    inputs = [_t(x) for x in composite_grad_inputs(K, 2, 101, K)]
+    tolerance chip_smoke.py holds the kernel to), at BACKWARD_KS, SB = 2
+    and B = 101 (B = 5 at K = 1024), with about one sigma in 8 exactly 0.
+    The plain version's gradient and the model's also agree with a float64
+    autograd within 1e-6."""
+    assert composite.BACKWARD_GROUP * composite.BACKWARD_MAX_PER_LANE == 64
+    inputs = [_t(x) for x in composite_grad_inputs(K, 2, 5 if K > 65 else
+                                                   101, K)]
     got = composite_backward_kernel_model(*inputs, white)
     ref = composite_rays_backward_plain(*inputs, white)
     assert ((got - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all()
@@ -423,17 +443,31 @@ def test_composite_backward_kernel_arithmetic_matches_plain(K, white):
 
 
 def test_composite_backward_geometry_and_function_on_cpu(monkeypatch):
-    """The backward's launch geometry (a warp a ray, 4 rays a block), and
-    CompositeFunction's plumbing with the launches replaced by the plain
-    versions (the kernels run only on the card): the field's gradient is
-    autograd's, rays and z get none, and the Function is not used where no
-    gradient is wanted (no_grad, inference mode)."""
-    assert composite.backward_geometry(4 * 4096, 40) == (4096, 128, 0)
-    assert composite.backward_geometry(2 * 1001, 37) == (501, 128, 0)
-    assert composite.backward_geometry(0, 8) == (0, 128, 0)
-    for bad in ((16, 0), (2 ** 34, 32)):
+    """The backward's launch geometry (8 lanes a ray, 16 rays in a block of
+    128 threads, no shared memory up to 64 samples; above, 16 bytes of
+    shared memory a sample of every tile but the last, in blocks of 64
+    threads where 128 do not fit; refused for K < 1, past
+    BACKWARD_MAX_K and past the grid), and CompositeFunction's plumbing
+    with the launches replaced by the plain versions (the kernels run only
+    on the card): the field's gradient is autograd's, rays and z get none,
+    and the Function is not used where no gradient is wanted (no_grad,
+    inference mode)."""
+    geometry = composite.backward_geometry
+    assert geometry(4 * 4096, 40) == (1024, 128, 0)
+    assert geometry(2 * 1001, 37) == (126, 128, 0)
+    assert geometry(0, 8) == (0, 128, 0)
+    assert geometry(33, 64) == (3, 128, 0)
+    assert geometry(33, 65) == (3, 128, 128 * 8 * 16)
+    assert geometry(10, 960) == (1, 128, 128 * 14 * 8 * 16)
+    assert geometry(10, 961) == (2, 64, 64 * 15 * 8 * 16)
+    assert geometry(10, 1024) == (2, 64, 64 * 15 * 8 * 16)
+    assert composite.BACKWARD_MAX_K == 1024
+    for K in range(1, composite.BACKWARD_MAX_K + 1):
+        _, threads, shared = geometry(1, K)
+        assert threads in (128, 64) and shared <= MAX_SHARED_BYTES
+    for bad in ((16, 0), (16, composite.BACKWARD_MAX_K + 1), (2 ** 36, 32)):
         with pytest.raises(ValueError):
-            composite.backward_geometry(*bad)
+            geometry(*bad)
     calls = []
     monkeypatch.setattr(composite, "_launch_forward", lambda *a: (
         calls.append("fwd"), composite_rays_plain(*a))[1])
@@ -609,10 +643,11 @@ def test_composite_kernel_matches_plain_on_card(cuda, K, white):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("white", [False, True])
-@pytest.mark.parametrize("K", [1, 5, 32, 37, 40, 64])
+@pytest.mark.parametrize("K", BACKWARD_KS)
 def test_composite_backward_kernel_matches_plain_on_card(cuda, K, white):
     """K4's backward kernel vs autograd through the plain version on the
-    card, at the CPU model's K, SB = 2 and B = 1001 rays (a partial last
+    card, at the CPU model's K (one tile in registers up to 64, tiles in
+    shared memory above), SB = 2 and B = 1001 rays (a partial last
     block), about one sigma in 8 exactly 0: within 1e-5 + 1e-4 |plain|
     (the scans take the products and sums in another order). Through
     composite_rays with a field that requires grad, one forward and one
