@@ -81,6 +81,19 @@ last line:
   10f. dtu_train: cli/train with train_dtu.yaml's sections on the DTU tree
      (343 metas), batch 4, 3 steps: one K4 and one K4 backward launch a
      step, finite losses; s/step and the loader's seconds per sample;
+  10g. mvs: cli/mvs write at the reference DTU width (TransMVSNet, 4 views
+     at 512x640, ndepths 48/32/8 of 192, base channels 8, random weights
+     from seed 0) on the DTU tree: 4 samples, which overwrite the priors of
+     the source cams 30, 10, 6 and 35; the 12 PNGs decoded and checked
+     (depth inside the cascade's reach, confidence in [0, 1]); seconds per
+     sample after the first, peak memory, and the top ops by device time
+     of one sample (torch.profiler); render_eval of the fast DTU preset
+     from the new priors, which the reader must read; the card against the
+     CPU on one sample with TF32 off (where a stage's hypotheses agree:
+     confidence within 1e-4, the same winner wherever the two largest
+     probabilities differ by more than 1e-5); cli/mvs eval at 864x1152
+     with 5 views on the sphere scene in the MVSNet eval layout. The MVS
+     path launches none of K1-K4;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
      route (phase 7; K4's backward: phase 10b), error and times (K4's entry
      also the empty launch's);
@@ -149,6 +162,8 @@ DTU_CAM_RADIUS, DTU_SCENE_SCALE = 0.76, 0.3
 MULTIFACE_RAW = (2048, 1334)   # MultiFace's frames, H x W
 SWEEP_FRAMES = 4
 DTU_TRAIN_STEPS = 3
+MVS_EVAL_HW = (864, 1152)   # GeneralEvalMVSDataset's caps
+MVS_TOP_OPS = 10
 
 
 class SmokeFailure(Exception):
@@ -1026,6 +1041,18 @@ def row_filters(path):
         rows[y * stride] for y in range(H)).items()))
 
 
+def _dtu_grid():
+    """World->cam extrinsics of the DTU tree's 7 x 7 grid of cams at
+    DTU_CAM_RADIUS about the sphere scene (scaled units)."""
+    import numpy as np
+
+    return [_lookat(DTU_CAM_RADIUS * np.array([
+        np.sin(az) * np.cos(el), np.sin(el), -np.cos(az) * np.cos(el)]),
+        np.array([0.0, -1.0, 0.0]))
+        for el in np.linspace(-0.25, 0.25, 7)
+        for az in np.linspace(-0.5, 0.5, 7)]
+
+
 def write_dtu_tree(root: Path, card):
     """A DTU-layout tree of one scan at the dataset's real size: 49 MVSNet
     cam files (intrinsics at 1/4 resolution, translations in mm), the
@@ -1046,12 +1073,7 @@ def write_dtu_tree(root: Path, card):
     sf = DTUDataset.SCALE_FACTOR_DEFAULT
     K = np.array([[0.9 * 640, 0, 320], [0, 0.9 * 640, 256], [0, 0, 1]],
                  np.float32)
-    exts = []
-    for el in np.linspace(-0.25, 0.25, 7):
-        for az in np.linspace(-0.5, 0.5, 7):
-            exts.append(_lookat(DTU_CAM_RADIUS * np.array([
-                np.sin(az) * np.cos(el), np.sin(el),
-                -np.cos(az) * np.cos(el)]), np.array([0.0, -1.0, 0.0])))
+    exts = _dtu_grid()
     views = _sphere_views(512, 640, DTU_SCENE_SCALE, exts, K)
     cams = root / "Cameras" / "train"
     cams.mkdir(parents=True)
@@ -1397,6 +1419,257 @@ def phase_dtu_train(root: Path, card):
         f"(4 threads) [{card}]; launches {launches}")
 
 
+def _mvs_profile(net, batch, card):
+    """One cascade under torch.profiler: the top MVS_TOP_OPS aten ops by
+    their own device time, and the device's busy share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        with torch.inference_mode():
+            net(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    op_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    check(ops, "mvs profile: torch.profiler saw no device time")
+    log(f"mvs profile: one sample, {wall_ms:.2f} ms wall, device busy "
+        f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), aten ops' own device "
+        f"time {op_ms:.2f} ms [{card}]; top {MVS_TOP_OPS} ops by device "
+        f"time:")
+    for e in ops[:MVS_TOP_OPS]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  {e.key:<36} {ms:9.3f} ms {ms / op_ms:6.1%} {e.count:6d} calls")
+
+
+def _mvs_card_vs_cpu(net, sample, card):
+    """The cascade on the card (TF32 off) against the CPU on one sample,
+    stage by stage. Where a stage's hypotheses agree (an earlier stage may
+    have picked another hypothesis at a near-tie and moved them), the
+    confidence must agree within 1e-4 and the same hypothesis must win
+    wherever the CPU's two largest probabilities differ by more than 1e-5.
+    Returns the share of pixels whose final depth differs."""
+    import copy
+
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            gpu = net(*mvs_cli.batch_of(sample, torch.device("cuda")))
+            cpu_net = copy.deepcopy(net).cpu()
+            t = time.perf_counter()
+            cpu = cpu_net(*mvs_cli.batch_of(sample, torch.device("cpu")))
+            cpu_s = time.perf_counter() - t
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    report = []
+    for st in ("stage1", "stage2", "stage3"):
+        g = {k: v.cpu() for k, v in gpu[st].items()}
+        c = cpu[st]
+        hyp = ((g["depth_values"] - c["depth_values"]).abs()
+               <= 1e-6 * c["depth_values"].abs()).all(dim=1)
+        top2 = c["prob_volume"].topk(2, dim=1).values
+        clear = hyp & (top2[:, 0] - top2[:, 1] > 1e-5)
+        conf_err = float((g["photometric_confidence"]
+                          - c["photometric_confidence"]).abs()[hyp].max())
+        wrong = int((g["prob_volume"].argmax(1)
+                     != c["prob_volume"].argmax(1))[clear].sum())
+        agree = float(hyp.float().mean())
+        report.append(f"{st}: hypotheses agree at {agree:.6f}, max |conf| "
+                      f"diff {conf_err:.2e}, other winners at {wrong} of "
+                      f"{int(clear.sum())} clear pixels")
+        check(agree > 0.99 and conf_err <= 1e-4
+              and wrong == 0, f"mvs card vs cpu: {report[-1]}")
+    d_g, d_c = gpu["depth"].cpu(), cpu["depth"]
+    differs = float(((d_g - d_c).abs() > 1e-6 * d_c.abs()).float().mean())
+    log(f"mvs card vs cpu (TF32 off, one 512x640 sample; the CPU took "
+        f"{cpu_s:.2f} s): {'; '.join(report)}; final depth differs at "
+        f"{differs:.6f} of the pixels [{card}]")
+    return differs
+
+
+def _mvs_reach(args, dv):
+    """The depths the cascade can output from full-range hypotheses dv:
+    stages 2 and 3 sweep +-ndepth/2 of their intervals about the depth
+    before, so they reach past dv's ends."""
+    nd = [int(x) for x in args.ndepths.split(",")]
+    ratio = [float(x) for x in args.depth_inter_r.split(",")]
+    step = (dv[-1] - dv[0]) / len(dv)
+    out = sum(n / 2 * r * step for n, r in zip(nd[1:], ratio[1:]))
+    return dv[0] - out, dv[-1] + out
+
+
+def write_mvs_eval_scan(root: Path):
+    """The sphere scene in the MVSNet eval layout at MVS_EVAL_HW: 5 cams of
+    the DTU grid (the centre and its 4 neighbours; full-resolution K, mm),
+    their PNG images and a pair.txt whose first two views are references
+    with the other 4 as sources."""
+    import numpy as np
+    from PIL import Image
+
+    from diner_tpu_torch.data.codecs import write_mvsnet_cam
+    from diner_tpu_torch.data.dtu import DTUDataset
+
+    H_, W_ = MVS_EVAL_HW
+    K = np.array([[0.9 * W_, 0, W_ / 2], [0, 0.9 * W_, H_ / 2], [0, 0, 1]],
+                 np.float32)
+    grid = _dtu_grid()
+    exts = [grid[i] for i in (24, 23, 25, 17, 31)]
+    views = _sphere_views(H_, W_, DTU_SCENE_SCALE, exts, K)
+    (root / "images").mkdir(parents=True)
+    (root / "cams").mkdir()
+    for v, (e, (rgb, _, _)) in enumerate(zip(exts, views)):
+        Image.fromarray(_u8(rgb)).save(root / "images" / f"{v:08d}.png")
+        mm = e.copy()
+        mm[:3, 3] /= DTUDataset.SCALE_FACTOR_DEFAULT
+        write_mvsnet_cam(root / "cams" / f"{v:08d}_cam.txt", mm, K, 425.0,
+                         2.5)
+    lines = ["2"]
+    for ref in (0, 1):
+        srcs = [s for s in range(len(exts)) if s != ref]
+        lines += [str(ref), f"{len(srcs)} " + " ".join(f"{s} 100.0"
+                                                       for s in srcs)]
+    (root / "pair.txt").write_text("\n".join(lines) + "\n")
+
+
+def phase_mvs(root: Path, card):
+    """cli/mvs write at full width on the DTU tree (4 samples: the corner
+    cams 30, 10, 6 and 35 at light 3), its 12 PNGs checked; one sample's
+    profile; render_eval of the fast DTU preset from the priors just
+    written; the card against the CPU on one sample; cli/mvs eval at
+    MVS_EVAL_HW with 5 views. The MVS path launches none of K1-K4."""
+    import numpy as np
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+    from diner_tpu_torch.data import dtu as dtu_reader
+    from diner_tpu_torch.data.codecs import read_pfm, read_png
+    from diner_tpu_torch.data.dtu import DTUDataset
+    from diner_tpu_torch.mvs.datasets import DTUMVSDataset
+
+    listfile = root / "splits" / "dtu_val_all.txt"
+    argv = ["write", "--datapath", str(root), "--listfile", str(listfile)]
+    args = mvs_cli.parser().parse_args(argv)
+    ds = DTUMVSDataset(root, listfile, mode="write_prediction")
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    seconds = mvs_cli.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _launches()
+    check(launches == _expect(), f"mvs write launched {launches}")
+    check(len(seconds) == 4, f"mvs write: {len(seconds)} samples, expected 4")
+    log(f"mvs write: {len(seconds)} DTU samples (4 views at 512x640, ndepths "
+        f"{args.ndepths} of {args.numdepth}, base channels "
+        f"{args.base_channels or 8}, random weights "
+        f"from seed {args.seed}, cuDNN TF32 at torch's default "
+        f"{torch.backends.cudnn.allow_tf32}): "
+        f"{statistics.fmean(seconds[1:]):.4f} s per sample after the first "
+        f"({[round(x, 4) for x in seconds]}; read, cascade and PNGs), peak "
+        f"memory {peak:.2f} GiB [{card}]; launches {launches}")
+
+    # the 12 files, decoded: depth inside the cascade's reach (less one PNG
+    # unit), confidence in [0, 1]
+    lo, hi = _mvs_reach(args, ds[0]["depth_values"])
+    unit = 1e-4 * 872.0 / 0.7      # cli/mvs's DTU scale: depth / (872 / 0.7)
+    written = []
+    for cam in DTUDataset.SRC_CAM_IDCS:
+        stem = root / "Depths" / "scan1" / f"depth_map_{cam:04d}_TransMVSNet"
+        files = [stem.with_name(stem.name + s + ".png")
+                 for s in ("", "_conf", "_vis")]
+        depth, conf, vis = (read_png(f) for f in files)
+        depth = depth * unit
+        conf = conf * 1e-4
+        check(all(f.stat().st_mtime >= t0 - 1 for f in files)
+              and depth.shape == conf.shape == vis.shape == (512, 640)
+              and vis.dtype == np.uint8 and np.isfinite(depth).all()
+              and depth.min() >= max(lo, 0) - unit and depth.max() <= hi
+              and 0 <= conf.min() and conf.max() <= 1,
+              f"mvs write: {stem.name}: depth {depth.min()}..{depth.max()} "
+              f"of {lo}..{hi}, conf {conf.min()}..{conf.max()}")
+        written += files[:2]
+    log(f"mvs write: 12 PNGs decoded, depth inside the cascade's reach "
+        f"{lo:.1f}..{hi:.1f} mm, confidence in [0, 1]")
+
+    net = mvs_cli.build_net(args, torch.device("cuda"))
+    batch = mvs_cli.batch_of(ds[0], torch.device("cuda"))
+    _mvs_profile(net, batch, card)
+
+    # render_eval from the priors just written: the DTU reader must read
+    # every one of them
+    read = []
+    plain = dtu_reader.read_png16
+
+    def spy(path):
+        read.append(Path(path))
+        return plain(path)
+
+    dtu_reader.read_png16 = spy
+    try:
+        hw = (int(512 * DTU_DOWNSAMPLE), int(640 * DTU_DOWNSAMPLE))
+        with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+            _eval_preset("mvs_render_eval", DTU_PRESET, _dtu_data(root),
+                         DTUDataset, 1, hw, card, Path(tmp))
+    finally:
+        dtu_reader.read_png16 = plain
+    check(set(written) <= set(read), f"render_eval read {sorted(set(read))}"
+          f", not every prior of {written}")
+    log(f"mvs render_eval: read the {len(written)} depth and confidence "
+        f"priors just written")
+
+    differs = _mvs_card_vs_cpu(net, ds[0], card)
+    check(differs < 0.01, f"mvs: final depth differs at {differs} of the "
+          f"pixels")
+    del net, batch
+
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        tmp = Path(tmp)
+        write_mvs_eval_scan(tmp / "scan1")
+        _zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = mvs_cli.main(["eval", "--datapath", str(tmp), "--testlist",
+                                "scan1", "--outdir", str(tmp / "out"),
+                                "--img_ext", ".png"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(_launches() == _expect(), f"mvs eval launched {_launches()}")
+        out = tmp / "out" / "scan1"
+        lo, hi = _mvs_reach(args, 425.0 + np.arange(args.numdepth) * 2.5
+                            * 1.06)
+        for ref in (0, 1):
+            depth, _ = read_pfm(out / "depth_est" / f"{ref:08d}.pfm")
+            conf, _ = read_pfm(out / "confidence" / f"{ref:08d}.pfm")
+            img = read_png(out / "images" / f"{ref:08d}.png")
+            check(depth.shape == conf.shape == MVS_EVAL_HW
+                  and img.shape == (*MVS_EVAL_HW, 3)
+                  and np.isfinite(depth).all() and depth.min() >= lo - 1e-3
+                  and depth.max() <= hi + 1e-3 and np.isfinite(conf).all()
+                  and conf.min() >= 0 and conf.max() <= 1
+                  and (out / "cams" / f"{ref:08d}_cam.txt").exists(),
+                  f"mvs eval view {ref}: depth {depth.shape} "
+                  f"{depth.min()}..{depth.max()}, conf {conf.min()}.."
+                  f"{conf.max()}")
+    log(f"mvs eval: 2 reference views at {MVS_EVAL_HW[0]}x{MVS_EVAL_HW[1]} "
+        f"with 5 views each, {[round(x, 4) for x in seconds]} s per view "
+        f"(the first warms up), peak memory {peak:.2f} GiB [{card}]; "
+        f"depth_est, confidence, cams and images checked")
+
+
 def main() -> int:
     try:
         import torch
@@ -1436,6 +1709,7 @@ def main() -> int:
             phase_multiface_eval(card)
             phase_sweep(dtu_root, card)
             phase_dtu_train(dtu_root, card)
+            phase_mvs(dtu_root, card)
         for k in kernels:
             k["launches"] = launches[k["name"]]
     except Exception:  # every phase failure ends the run without a result
