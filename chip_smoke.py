@@ -62,7 +62,24 @@ last line:
      on one val image. Each step must launch K4 and its backward once and
      K1-K3 never; every loss finite; the checkpoint reloads bitwise; the
      resumed run ends at step 10. Prints steps/s, s/step after warm-up and
-     the peak memory;
+     the peak memory, and whether <run>/tb holds TensorBoard events (it
+     must exactly when torch.utils.tensorboard imports);
+  10b1. ddp_nccl: cli/train --multihost as one NCCL rank (torchrun's
+     variables, a free port) and the same run without it, 4 steps at
+     batch 4, both exact (deterministic algorithms, cuDNN TF32 off): each
+     step's losses within 1e-4 relative, one K4 and one backward a step;
+     s/step of both; the gradient all-reduce on one NCCL rank must take
+     under 2% of a step;
+  10b2. ddp_two_ranks: two ranks (child processes of this script) share the
+     card over gloo with CUDA tensors, batch 1 each, against one process
+     at batch 2 run first, all exact, on the same global batches and
+     draws for 3 steps: global losses within 1e-4 relative, the parameters
+     within 1e-6 at 99.9% of the elements after the first step and within
+     2 lr a step after the last, the ranks bitwise equal; then cli/train
+     --multihost --logdir in the ranks' group (one run directory, rank 0's
+     checkpoints and metrics) for 2 steps and a 2-rank --resume for 1;
+     each rank's s/step (two processes on one card: not a scaling
+     number), peak memory and K4 launches;
   10c. dtu_eval: a DTU-layout tree of one scan at the dataset's real size
      under build/ (49 MVSNet cams, 343 512x640 images, the source cams'
      uint16 depth and confidence PNGs, their rows filtered adaptively by
@@ -72,6 +89,10 @@ last line:
      (random weights from a seed) on 2 images: 20 launches of K1, K2 and K4
      an image, finite scores; the reader's host seconds per sample apart
      from the rest, and the reader alone on four samples;
+  10c1. lpips: random LPIPS weights from seed 0 in the JAX package's .npz
+     layout; cli/eval_folder score --lpips on the bulk eval phase's folder
+     and render_eval --lpips of the fast DTU preset on the DTU tree; each
+     image's LPIPS on the card within 1e-5 of the CPU's; ms per image;
   10d. facescape_eval and multiface_eval: a FaceScape tree at 256x256 and a
      MultiFace tree of raw 2048x1334 frames (downsample 8 -> 256x160), meta
      caches and split config in temporary directories; render_eval --n 1 of
@@ -95,8 +116,8 @@ last line:
      with 5 views on the sphere scene in the MVSNet eval layout. The MVS
      path launches none of K1-K4;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
-     route (phase 7; K4's backward: phase 10b), error and times (K4's entry
-     also the empty launch's);
+     route (phase 7; K4's backward: phase 10b; both K4's add the ddp
+     phases'), error and times (K4's entry also the empty launch's);
   12. the last line {"ok": true, "device": {...}}.
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -164,6 +185,18 @@ SWEEP_FRAMES = 4
 DTU_TRAIN_STEPS = 3
 MVS_EVAL_HW = (864, 1152)   # GeneralEvalMVSDataset's caps
 MVS_TOP_OPS = 10
+DDP_NCCL_STEPS = 4
+# the exact comparison's batch: the deterministic scatter of the field's
+# gathers needs int64 indices as large as the gathered rows (20 GiB more at
+# batch 4, beyond the card's 80 GB)
+DDP_EXACT_SB = 2
+# two ranks on one card: explicit-draw steps, then cli/train's steps and
+# its resume
+DDP_STEPS, DDP_CLI_STEPS, DDP_RESUME_STEPS = 3, 2, 1
+DDP_CHILD_TIMEOUT = 600
+# card vs CPU LPIPS of one image, TF32 off: VGG16's f32 convolutions in
+# other algorithms and orders of sums
+LPIPS_TOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -749,9 +782,12 @@ def _quality_renders():
         check(abs(delta) <= 0.1, f"{name} path off by {delta:+.4f} dB")
 
 
-def phase_eval(card):
+def phase_eval(card, keep: Path):
     """Bulk eval from a reference-layout checkpoint of the random fast-DTU
-    model: two synthetic 4-view 256x320 scenes."""
+    model: two synthetic 4-view 256x320 scenes. The output folder is copied
+    to `keep` (the lpips phase scores it again)."""
+    import shutil
+
     import numpy as np
     import torch
     import yaml
@@ -785,6 +821,7 @@ def phase_eval(card):
         pngs = sorted(p.name for p in (tmp / "out" / "visualizations")
                       .iterdir())
         reports = sorted(p.name for p in (tmp / "out").iterdir())
+        shutil.copytree(tmp / "out", keep)
     chunks = 2 * -(-H * W // model.render_cfg.eval_chunk_rays)
     launches = {n: k.launches for n, k in KERNELS.items()}
     log(f"eval: render_eval on 2 scenes at {H}x{W}: {len(pngs)} PNGs, "
@@ -805,7 +842,8 @@ def phase_eval(card):
           f"eval launches {launches}, expected {chunks} of K1, K2, K4")
 
 
-def _train_config(tmp: Path, batch_size: int) -> Path:
+def _train_config(tmp: Path, batch_size: int,
+                  name: str = "train.yaml") -> Path:
     """train_dtu.yaml with its data on synthetic 4-view 256x320 scenes and
     no validation in the loop; nerf, renderer and optimizer as they are."""
     import yaml
@@ -829,14 +867,15 @@ def _train_config(tmp: Path, batch_size: int) -> Path:
                                   "val_check_interval": None}}
     if TRAIN_REMAT:
         conf["nerf"]["kwargs"]["remat_field"] = True
-    path = tmp / "train.yaml"
+    path = tmp / name
     path.write_text(yaml.safe_dump(conf))
     return path
 
 
 def phase_train(card):
     """cli/train at train_dtu.yaml's widths; returns K4's backward
-    launches of the run."""
+    launches of the run, its metrics lines and its median s/step after
+    warm-up."""
     import numpy as np
     import torch
 
@@ -877,6 +916,15 @@ def phase_train(card):
             check(x["skipped_nonfinite"] == 0.0, f"skipped step {x}")
         s_step = [1.0 / x["steps_per_sec"] for x in lines]
         steady = statistics.median(s_step[2:])
+        tb_files = sorted(p.name for p in (run / "tb").iterdir()) \
+            if (run / "tb").is_dir() else []
+        check(bool(tb_files) == _tensorboard_importable(),
+              f"train: tb/ holds {tb_files}, but torch.utils.tensorboard "
+              f"imports: {_tensorboard_importable()}")
+        log(f"tensorboard: " + (
+            f"events written under <run>/tb ({tb_files})" if tb_files else
+            "no events under <run>/tb: torch.utils.tensorboard does not "
+            "import (no tensorboard package here), metrics.jsonl only"))
         log(f"train: {TRAIN_STEPS} steps in {seconds:.2f} s with set-up; "
             f"totals {[round(x['total'], 5) for x in lines]}")
         log(f"train: s/step {[round(v, 4) for v in s_step]}; after warm-up "
@@ -919,6 +967,7 @@ def phase_train(card):
         log(f"train: resumed from step {TRAIN_STEPS} for {RESUME_STEPS} "
             f"steps (no step replayed), Adam and the schedule at {done}")
         backward_launches = KERNELS["composite_rays_backward"].launches
+        first_run = lines
 
         for k in KERNELS.values():
             k.launches = 0
@@ -937,7 +986,513 @@ def phase_train(card):
               and KERNELS["composite_rays_backward"].launches == 0,
               f"render_eval launched K4 {KERNELS['composite_rays'].launches}"
               f" times, expected {chunks}")
-    return backward_launches
+    return backward_launches, first_run, steady
+
+
+def _tensorboard_importable() -> bool:
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_env(port: int, rank: int = 0, world: int = 1):
+    """torchrun's variables for `rank` of `world` on this machine; every
+    rank on cuda:0, the one card."""
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "WORLD_SIZE": str(world), "RANK": str(rank), "LOCAL_RANK": "0"}
+
+
+LOSS_KEYS = ("rgb_fine", "vgg_fine", "antibias", "total")
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+class _Exact:
+    """torch's deterministic algorithms (cuDNN's too, cuBLAS with a fixed
+    workspace) and no TF32 in cuDNN's convolutions while active: the same
+    inputs give the same bits run to run, and another batch size (another
+    cuDNN algorithm) rounds as float32 does, so that two training runs
+    differ only where their programs do.
+    Without it, the card's run-to-run differences (atomic sums in the
+    backward pass) grow through Adam's steps: on the H100 a one-rank NCCL
+    run and a single-process run of the training phase's config, neither
+    deterministic, read losses 2.6e-4 apart (relative) by the third
+    step."""
+
+    def __enter__(self):
+        import os
+
+        import torch
+
+        self.saved = (torch.are_deterministic_algorithms_enabled(),
+                      torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark,
+                      torch.backends.cudnn.allow_tf32,
+                      os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        import torch
+
+        algos, det, bench, tf32, env = self.saved
+        torch.use_deterministic_algorithms(algos)
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+        torch.backends.cudnn.allow_tf32 = tf32
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def phase_ddp_nccl(card, train_lines, train_s_step):
+    """cli/train --multihost as one NCCL rank (torchrun's variables, a free
+    port) at train_dtu.yaml's widths. Exact (`_Exact`) at batch
+    DDP_EXACT_SB, where the deterministic algorithms fit in memory, against
+    the same run without --multihost (the same data order and draws: the
+    generator of step s at world size 1): each of DDP_NCCL_STEPS steps'
+    losses within 1e-4 relative. Then at batch 4 as the training phase ran
+    (not exact): the first step's losses within 1e-5 relative of that
+    phase's, s/step beside its, and the gradient all-reduce of the last
+    step on one NCCL rank, timed against a step: under 2%."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from diner_tpu_torch.cli import train as train_cli
+    from diner_tpu_torch.parallel import all_reduce_grads_, init_multihost
+
+    runs = {}
+    env = _ddp_env(_free_port())
+    saved = {k: os.environ.get(k) for k in env}
+
+    def run(label, cfg, extra):
+        if extra:
+            os.environ.update(env)
+            os.environ["MASTER_PORT"] = str(_free_port())
+        _zero_launches()
+        state = train_cli.main([str(cfg), "--run-dir", str(tmp / label),
+                                "--max-steps", str(DDP_NCCL_STEPS),
+                                "--log-every", "1", *extra])
+        torch.cuda.synchronize()
+        check(not dist.is_initialized(),
+              "cli/train --multihost left its process group")
+        runs[label] = (_launches(), [json.loads(x) for x in (
+            tmp / label / "metrics.jsonl").read_text().splitlines()])
+        return state
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            exact = _train_config(tmp, DDP_EXACT_SB, "exact.yaml")
+            with _Exact():
+                run("exact_single", exact, [])
+                run("exact_nccl", exact, ["--multihost"])
+            state = run("nccl", _train_config(tmp, TRAIN_SB),
+                        ["--multihost"])
+
+        # the all-reduce alone: one NCCL rank again, the last step's grads
+        os.environ["MASTER_PORT"] = str(_free_port())
+        init_multihost(device="cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"ddp_nccl: backend {dist.get_backend()}")
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        n_bytes = sum(p.grad.numel() * p.grad.element_size()
+                      for p in params if p.grad is not None)
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            all_reduce_grads_(params)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for label, (got, ls) in runs.items():
+        check(got == _expect(k4=DDP_NCCL_STEPS, k4_backward=DDP_NCCL_STEPS),
+              f"ddp_nccl: the {label} run launched {got}, expected one K4 "
+              f"and one K4 backward a step")
+        check([x["step"] for x in ls] == list(range(DDP_NCCL_STEPS)),
+              f"ddp_nccl: the {label} run's metrics steps "
+              f"{[x['step'] for x in ls]}")
+    ref, lines = runs["exact_single"][1], runs["exact_nccl"][1]
+    worst = max(_rel(x[k], y[k]) for x, y in zip(lines, ref)
+                for k in LOSS_KEYS)
+    check(worst <= 1e-4, f"ddp_nccl: exact losses {lines} against the "
+                         f"single process's {ref}")
+    first = max(_rel(runs["nccl"][1][0][k], train_lines[0][k])
+                for k in LOSS_KEYS)
+    check(first <= 1e-5, f"ddp_nccl: the first step's losses "
+                         f"{runs['nccl'][1][0]} against the training "
+                         f"phase's {train_lines[0]}")
+    s_step = {label: [1.0 / x["steps_per_sec"] for x in ls]
+              for label, (_, ls) in runs.items()}
+    steady = statistics.median(s_step["nccl"][2:])
+    reduce_s = statistics.median(times[2:])
+    share = reduce_s / steady
+    log(f"ddp_nccl: cli/train --multihost, one NCCL rank, {DDP_NCCL_STEPS} "
+        f"steps at batch {DDP_EXACT_SB}, exact (deterministic algorithms, "
+        f"cuDNN TF32 off): losses within {worst:.2e} relative of the same "
+        f"run without --multihost; s/step "
+        f"{[round(v, 4) for v in s_step['exact_nccl']]} against "
+        f"{[round(v, 4) for v in s_step['exact_single']]} [{card}]")
+    log(f"ddp_nccl: at batch {TRAIN_SB} (not exact): the first step's "
+        f"losses within {first:.2e} relative of the training phase's; "
+        f"s/step {[round(v, 4) for v in s_step['nccl']]}, after warm-up "
+        f"{steady:.4f} against the training phase's {train_s_step:.4f} "
+        f"[{card}]")
+    log(f"ddp_nccl: gradient all-reduce on one NCCL rank "
+        f"({n_bytes / 1e6:.1f} MB in 25 MiB buckets): {reduce_s * 1e3:.3f} "
+        f"ms = {100 * share:.3f}% of a step at batch {TRAIN_SB}")
+    check(share < 0.02, f"ddp_nccl: the all-reduce takes {100 * share:.2f}% "
+                        f"of a step, not under 2%")
+    return {n: sum(got[n] for got, _ in runs.values()) for n in _launches()}
+
+
+def _global_draws(model, batch, step: int):
+    """The draws of `step` for a global batch (on the CPU, from a seed):
+    the patch pixels and the sampler noise (u_strat, g, u_fill)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1000 + step)
+    SB, H, W, _ = batch["target_rgb"].shape
+    pix = model._select_pixels(batch, SB, H, W, gen)
+    cfg, n = model.render_cfg, model.n_rays
+    noise = (torch.rand(SB, n, cfg.n_depth_candidates, generator=gen),
+             torch.randn(SB, n, cfg.n_gaussian, generator=gen),
+             torch.rand(SB, n, cfg.n_samples, generator=gen))
+    return pix, noise
+
+
+def _explicit_steps(cfg: Path, rows: slice, dev):
+    """DDP_STEPS train steps of train_dtu.yaml's model (seed 0, broadcast
+    from rank 0 in a group) on the global batches of scenes (0, 1), (2, 3),
+    ... with the global draws of _global_draws; this process trains on
+    `rows` of each. Returns the losses, s/step, the parameters after the
+    first and the last step, and the gradients' rms as Adam holds it."""
+    import torch
+
+    from diner_tpu_torch.cli.build import (build_dataset, build_diner,
+                                           optimizer_kwargs)
+    from diner_tpu_torch.core.config import load_config
+    from diner_tpu_torch.data import collate, to_device_batch
+    from diner_tpu_torch.models.diner import to_tensors
+    from diner_tpu_torch.parallel import broadcast_module_
+    from diner_tpu_torch.train import create_train_state, train_step
+
+    conf = load_config(cfg)
+    train_set = build_dataset(conf["data"]["train"], stage="train")
+    torch.manual_seed(0)
+    model = build_diner(conf, znear=train_set.znear, zfar=train_set.zfar)
+    model.to(dev)
+    broadcast_module_(model)
+    opt_kw = optimizer_kwargs(conf)
+    state = create_train_state(model, opt_kw.pop("lr"), **opt_kw)
+    losses, seconds, params = [], [], []
+    for step in range(DDP_STEPS):
+        batch = to_tensors(to_device_batch(collate(
+            [train_set[i] for i in (2 * step, 2 * step + 1)])), "cpu")
+        pix, noise = _global_draws(model, batch, step)
+        local = {k: v[rows].to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(train_step(state, local, pix=pix[rows].to(dev),
+                                 noise=tuple(x[rows].to(dev)
+                                             for x in noise)))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        params.append({k: v.detach().to("cpu", copy=True)
+                       for k, v in model.nerf.state_dict().items()})
+    # the gradients' root mean square as Adam sees it, sqrt(v_hat), for
+    # each parameter
+    opt = state.optimizer
+    beta2 = opt.param_groups[0]["betas"][1]
+    rms = {}
+    for name, p in model.nerf.named_parameters():
+        st = opt.state[p]
+        rms[name] = (st["exp_avg_sq"] / (1 - beta2 ** float(st["step"]))
+                     ).sqrt().cpu()
+    return {"losses": losses, "seconds": seconds, "grad_rms": rms,
+            "params": [params[0], params[-1]]}
+
+
+def phase_ddp_two_ranks(card):
+    """Two ranks share cuda:0 over gloo (CUDA tensors), batch 1 each, at
+    train_dtu.yaml's widths, against one process at batch 2 run first on
+    the same global batches and draws, all exact (`_Exact`): DDP_STEPS
+    steps' global losses within 1e-4 relative; the parameters within 1e-6
+    at 99.9% of the elements after the first step and after the last, and
+    within 2 lr a step everywhere; then cli/train --multihost in the same
+    group (--logdir: one run directory, rank 0's stamp, written by rank 0),
+    and a resume for DDP_RESUME_STEPS step."""
+    import gc
+    import os
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        tmp = Path(tmp)
+        cfg = _train_config(tmp, 1)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        with _Exact():
+            ref = _explicit_steps(cfg, slice(0, 2), torch.device("cuda"))
+        ref_launches = _launches()
+        ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(ref_launches == _expect(k4=DDP_STEPS, k4_backward=DDP_STEPS),
+              f"ddp_two_ranks: the reference launched {ref_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        coordinator = f"127.0.0.1:{_free_port()}"
+        cli_port = _free_port()
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
+             str(r), str(tmp), coordinator],
+            env=dict(os.environ, **_ddp_env(cli_port, r, 2)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=DDP_CHILD_TIMEOUT)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        seconds = time.perf_counter() - t
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"ddp_two_ranks: rank {r} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+        outs = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                for r in range(2)]
+        runs = sorted((tmp / "logs").iterdir())
+        check(len(runs) == 1 and all(o["run"] == str(runs[0]) for o in outs),
+              f"ddp_two_ranks: run directories {runs}, "
+              f"{[o['run'] for o in outs]}")
+        run = runs[0]
+        ckpts = sorted(p.name for p in (run / "ckpts").iterdir())
+        steps = [json.loads(x)["step"] for x in
+                 (run / "metrics.jsonl").read_text().splitlines()]
+
+    r0, r1 = outs
+    per_step = [max(_rel(r0["losses"][s][k], ref["losses"][s][k])
+                    for k in LOSS_KEYS) for s in range(DDP_STEPS)]
+    worst = max(per_step)
+    log(f"ddp_two_ranks: global losses against batch 2's, the largest "
+        f"relative difference a step: {[f'{v:.2e}' for v in per_step]}")
+    check(r1["losses"] == r0["losses"],
+          "ddp_two_ranks: the ranks logged different losses")
+    check(worst <= 1e-4, f"ddp_two_ranks: losses {r0['losses']} against "
+                         f"batch 2's {ref['losses']}")
+    lr = 1e-4
+    names = list(ref["grad_rms"])
+    rms = torch.cat([ref["grad_rms"][k].reshape(-1) for k in names])
+    diffs = [torch.cat([(p[k] - q[k]).abs().reshape(-1) for k in names])
+             for p, q in zip(r0["params"], ref["params"])]
+    close = [float((d <= 1e-6).float().mean()) for d in diffs]
+    worst_p = [float(d.max()) for d in diffs]
+    log(f"ddp_two_ranks: parameters within 1e-6 of batch 2's at "
+        f"{close[0]:.6f} of {diffs[0].numel()} elements after step 1 "
+        f"(largest difference {worst_p[0]:.3e}), at {close[1]:.6f} after "
+        f"step {DDP_STEPS} (largest {worst_p[1]:.3e}, where the gradient "
+        f"rms, Adam's sqrt(v_hat), is {float(rms[diffs[1].argmax()]):.3e})")
+    check(all(torch.equal(p[k], v) for p, q in zip(r1["params"],
+                                                   r0["params"])
+              for k, v in q.items()),
+          "ddp_two_ranks: the ranks' parameters differ")
+    # after the first step the parameters differ by the gradients' order of
+    # sums alone; each later step's gradients magnify what the parameters
+    # differ by (on the CPU, parameters moved by 1e-6 change 60-75% of the
+    # next gradient's entries by more than 1e-3 relative), and Adam moves
+    # an entry whose gradient flips sign by up to 2 lr a step
+    check(close[0] >= 0.999 and worst_p[0] <= 2 * lr,
+          f"ddp_two_ranks: parameters within 1e-6 at {close[0]:.6f} of the "
+          f"elements after one step, largest difference {worst_p[0]:.3e}")
+    check(close[1] >= 0.999 and worst_p[1] <= 2 * DDP_STEPS * lr,
+          f"ddp_two_ranks: parameters within 1e-6 at {close[1]:.6f} of the "
+          f"elements after {DDP_STEPS} steps, largest difference "
+          f"{worst_p[1]:.3e} (at most {2 * DDP_STEPS} lr)")
+    cli_steps = DDP_CLI_STEPS + DDP_RESUME_STEPS
+    check(ckpts == [f"step_{DDP_CLI_STEPS:08d}.pt",
+                    f"step_{cli_steps:08d}.pt"]
+          and steps == list(range(DDP_CLI_STEPS)) + [DDP_CLI_STEPS],
+          f"ddp_two_ranks: checkpoints {ckpts}, metrics steps {steps}")
+    for r, o in enumerate(outs):
+        check(o["launches_explicit"] == _expect(k4=DDP_STEPS,
+                                                k4_backward=DDP_STEPS)
+              and o["launches_cli"] == _expect(k4=cli_steps,
+                                               k4_backward=cli_steps),
+              f"ddp_two_ranks: rank {r} launched {o['launches_explicit']} "
+              f"and {o['launches_cli']}")
+    log(f"ddp_two_ranks: the reference, one process at batch 2: s/step "
+        f"{[round(v, 4) for v in ref['seconds']]}, peak memory "
+        f"{ref_peak:.2f} GiB [{card}]")
+    log(f"ddp_two_ranks: 2 ranks (gloo, CUDA tensors) at batch 1: global "
+        f"losses within {worst:.2e} relative of batch 2's over {DDP_STEPS} "
+        f"steps; the ranks' parameters bitwise equal")
+    for r, o in enumerate(outs):
+        log(f"ddp_two_ranks: rank {r}: s/step "
+            f"{[round(v, 4) for v in o['seconds']]} (two processes sharing "
+            f"one card over gloo: not a scaling number), peak memory "
+            f"{o['peak'] / 2 ** 30:.2f} GiB, K4 and backward launches "
+            f"{o['launches_explicit']['composite_rays']} + "
+            f"{o['launches_cli']['composite_rays']} and "
+            f"{o['launches_explicit']['composite_rays_backward']} + "
+            f"{o['launches_cli']['composite_rays_backward']} "
+            f"(explicit draws + cli/train)")
+    log(f"ddp_two_ranks: cli/train --multihost --logdir: one run directory "
+        f"{run.name}, rank 0's checkpoints {ckpts} and metrics steps "
+        f"{steps} after a 2-rank --resume for {DDP_RESUME_STEPS} step; both "
+        f"ranks done in {seconds:.1f} s with start-up [{card}]")
+    return {n: sum(o["launches_explicit"][n] + o["launches_cli"][n]
+                   for o in outs) for n in r0["launches_cli"]}
+
+
+def ddp_rank_child(r: int, tmp: Path, coordinator: str) -> int:
+    """Rank r of phase_ddp_two_ranks, in its own process on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    from diner_tpu_torch.cli import train as train_cli
+    from diner_tpu_torch.parallel import init_multihost
+
+    _Exact().__enter__()   # as the reference
+    dev = init_multihost(coordinator, 2, r, device="cuda", backend="gloo")
+    check(dev == torch.device("cuda", 0) and dist.get_backend() == "gloo",
+          f"rank {r} on {dev} over {dist.get_backend()}")
+    cfg = tmp / "train.yaml"
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    out = _explicit_steps(cfg, slice(r, r + 1), dev)
+    out["launches_explicit"] = _launches()
+    _zero_launches()
+    # cli/train in this group (--multihost keeps a group it finds)
+    train_cli.main([str(cfg), "--logdir", str(tmp / "logs"), "--multihost",
+                    "--max-steps", str(DDP_CLI_STEPS), "--log-every", "1"])
+    runs = sorted((tmp / "logs").iterdir())
+    check(len(runs) == 1, f"rank {r}: run directories {runs}")
+    train_cli.main([str(cfg), "--run-dir", str(runs[0]), "--multihost",
+                    "--resume", "--max-steps",
+                    str(DDP_CLI_STEPS + DDP_RESUME_STEPS), "--log-every",
+                    "1"])
+    torch.cuda.synchronize()
+    out["launches_cli"] = _launches()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["run"] = str(runs[0])
+    torch.save(out, tmp / f"rank{r}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def write_lpips_npz(path: Path, seed: int = 0):
+    """Random LPIPS weights from `seed` in the JAX package's
+    save_lpips_npz layout (flax keys, HWIO kernels), as
+    scripts/port_lpips.py writes real ones."""
+    import numpy as np
+
+    from diner_tpu_torch.nn.lpips import LIN_CH, VGG16_STAGES
+
+    rng = np.random.RandomState(seed)
+    arrays, c_in = {}, 3
+    for si, (ch, reps) in enumerate(VGG16_STAGES):
+        for ci in range(reps):
+            w = rng.randn(ch, c_in, 3, 3) * np.sqrt(2.0 / (9 * c_in))
+            name = f"params/net/conv{si + 1}_{ci + 1}"
+            arrays[f"{name}/kernel"] = w.transpose(2, 3, 1, 0).astype(
+                np.float32)
+            arrays[f"{name}/bias"] = (rng.randn(ch) * 0.01).astype(
+                np.float32)
+            c_in = ch
+    for i, ch in enumerate(LIN_CH):
+        arrays[f"params/lin{i}"] = (rng.rand(ch) + 0.01).astype(np.float32)
+    np.savez(path, **arrays)
+
+
+def phase_lpips(eval_dir: Path, dtu_root: Path, card):
+    """LPIPS on the card: cli/eval_folder score --lpips on the eval phase's
+    folder, render_eval --lpips of the fast DTU preset on the DTU tree;
+    each image's card LPIPS within LPIPS_TOL of the CPU's on the same PNGs
+    (cuDNN's TF32 is off inside make_lpips_fn); seconds per image."""
+    import numpy as np
+
+    from diner_tpu_torch.cli import eval_folder
+    from diner_tpu_torch.data.dtu import DTUDataset
+    from diner_tpu_torch.image_ops.png import read_png
+    from diner_tpu_torch.nn.lpips import load_lpips_npz, make_lpips_fn
+
+    hw = (int(512 * DTU_DOWNSAMPLE), int(640 * DTU_DOWNSAMPLE))
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        tmp = Path(tmp)
+        npz = tmp / "lpips_vgg.npz"
+        write_lpips_npz(npz)
+        t = time.perf_counter()
+        check(eval_folder.main(["score", str(eval_dir), "--lpips",
+                                str(npz)]) == 0, "eval_folder score failed")
+        score_s = time.perf_counter() - t
+        scores = _eval_preset("lpips_dtu_eval", DTU_PRESET,
+                              _dtu_data(dtu_root), DTUDataset, 2, hw, card,
+                              tmp, extra=["--lpips", str(npz)])
+        check("lpips" in scores, f"render_eval --lpips scores {scores}")
+        rows = [r for d in (eval_dir, tmp / "lpips_dtu_eval_out")
+                for r in json.loads((d / "detailed_report.json")
+                                    .read_text())]
+        weights = load_lpips_npz(npz)
+        on_card = make_lpips_fn(weights, device="cuda")
+        on_cpu = make_lpips_fn(weights, device="cpu")
+        pairs = []
+        for row in rows:
+            pred_p = Path(row["path"])
+            gt_p = pred_p.with_name(pred_p.name.replace("-pred.png",
+                                                        "-gt.png"))
+            pairs.append(tuple(read_png(p).astype(np.float32)[..., :3] / 255
+                               for p in (pred_p, gt_p)))
+        on_card(*pairs[0])   # warm-up
+        card_s, errs = [], []
+        for row, (pred, gt) in zip(rows, pairs):
+            t = time.perf_counter()
+            value = on_card(pred, gt)
+            card_s.append(time.perf_counter() - t)
+            errs.append(max(abs(value - row["lpips"]),
+                            abs(row["lpips"] - on_cpu(pred, gt))))
+    check(max(errs) <= LPIPS_TOL,
+          f"lpips: the card's per-image LPIPS differ from the CPU's by up to "
+          f"{max(errs):.2e}")
+    log(f"lpips: eval_folder score --lpips on {len(rows) - 2} images in "
+        f"{score_s:.3f} s, render_eval --lpips on 2 DTU images ({hw[0]}x"
+        f"{hw[1]}): lpips {[round(r['lpips'], 6) for r in rows]}; card vs "
+        f"CPU within {max(errs):.2e} (tolerance {LPIPS_TOL:.0e}, cuDNN TF32 "
+        f"off); LPIPS alone {statistics.median(card_s) * 1e3:.2f} ms per "
+        f"image on the card [{card}]")
 
 
 def _launches():
@@ -1153,7 +1708,8 @@ def _random_ckpt(conf, tmp: Path) -> Path:
     return tmp / "ckpts"
 
 
-def _eval_preset(label, preset, data, dataset_cls, n, hw, card, tmp: Path):
+def _eval_preset(label, preset, data, dataset_cls, n, hw, card, tmp: Path,
+                 extra=()):
     """cli/render_eval of `preset` with its data section replaced by
     `data`, from a random checkpoint, on `n` images of `hw` pixels; each
     image must launch K1, K2 and K4 once a chunk of the preset. Returns the
@@ -1176,7 +1732,8 @@ def _eval_preset(label, preset, data, dataset_cls, n, hw, card, tmp: Path):
     t = time.perf_counter()
     with _TimedReads(dataset_cls) as reads:
         scores = render_eval.main(["--config", str(cfg), "--ckpt", str(ckpt),
-                                   "--out", str(out), "--n", str(n)])
+                                   "--out", str(out), "--n", str(n),
+                                   *extra])
     seconds = time.perf_counter() - t
     launches = _launches()
     pngs = sorted(p.name for p in (out / "visualizations").iterdir())
@@ -1687,6 +2244,10 @@ def main() -> int:
               f"({e})", file=sys.stderr)
         return 1
 
+    if sys.argv[1:2] == ["--ddp-rank"]:   # a rank of phase_ddp_two_ranks
+        return ddp_rank_child(int(sys.argv[2]), Path(sys.argv[3]),
+                              sys.argv[4])
+
     t0 = time.perf_counter()
     try:
         card = phase_card()
@@ -1698,13 +2259,21 @@ def main() -> int:
         launches = phase_serve(card)
         phase_facescape(card)
         phase_quality()
-        phase_eval(card)
-        launches["composite_rays_backward"] = phase_train(card)
         DATA_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
-            dtu_root = Path(tmp) / "dtu"
+            work = Path(tmp)
+            phase_eval(card, work / "eval")
+            backward, train_lines, train_s_step = phase_train(card)
+            launches["composite_rays_backward"] = backward
+            for ddp in (phase_ddp_nccl(card, train_lines, train_s_step),
+                        phase_ddp_two_ranks(card)):
+                launches["composite_rays"] += ddp["composite_rays"]
+                launches["composite_rays_backward"] += \
+                    ddp["composite_rays_backward"]
+            dtu_root = work / "dtu"
             write_dtu_tree(dtu_root, card)
             phase_dtu_eval(dtu_root, card)
+            phase_lpips(work / "eval", dtu_root, card)
             phase_facescape_eval(card)
             phase_multiface_eval(card)
             phase_sweep(dtu_root, card)

@@ -3,7 +3,7 @@ of diner_tpu.cli.render_eval).
 
     python -m diner_tpu_torch.cli.render_eval --config CONFIG.yaml \
         (--ckpt RUN/ckpts | --torch-ckpt MODEL.ckpt) --out OUTDIR [--n N] \
-        [--nsamples K] [--device cuda|cpu]
+        [--nsamples K] [--lpips WEIGHTS.npz] [--device cuda|cpu]
 
 --ckpt takes a checkpoint the port's trainer wrote (a ckpts directory,
 whose latest step is used, or one step_*.pt file); the model is the
@@ -16,7 +16,9 @@ As in the reference (create_prediction_folder.py), --n renders a
 deterministic Random(0) subset of the config's `data.val` set, --nsamples
 overrides n_samples and scales n_gaussian with it, and znear/zfar come from
 the dataset. Writes OUTDIR/visualizations/*.png and the score reports in
-OUTDIR; prints the seconds per image and the mean scores.
+OUTDIR; prints the seconds per image and the mean scores. --lpips adds the
+LPIPS score (weights from scripts/port_lpips.py; see nn/lpips.py), on the
+same device as the renders.
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=None, help="eval subset size")
     ap.add_argument("--nsamples", type=int, default=None,
                     help="override renderer n_samples (scales n_gaussian)")
+    ap.add_argument("--lpips", default=None,
+                    help="LPIPS-VGG weights (.npz; scripts/port_lpips.py): "
+                         "adds lpips to the scores")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -110,7 +115,12 @@ def main(argv=None):
     seconds = time.perf_counter() - t
     print(f"rendered {n_images} images on {dev} in {seconds:.3f} s: "
           f"{seconds / n_images:.4f} s per image (PNG writing included)")
-    scores = evaluate_folder(visdir, out)
+    lpips_fn = None
+    if args.lpips:
+        from diner_tpu_torch.nn.lpips import load_lpips_npz, make_lpips_fn
+
+        lpips_fn = make_lpips_fn(load_lpips_npz(args.lpips), dev)
+    scores = evaluate_folder(visdir, out, lpips_fn=lpips_fn)
     print({k: round(v, 4) for k, v in scores.items()})
     return scores
 

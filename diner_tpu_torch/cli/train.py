@@ -3,16 +3,30 @@
     python -m diner_tpu_torch.cli.train CONFIG.yaml [--run-dir DIR |
         --logdir DIR] [--max-steps N] [--seed S] [--resume]
         [--log-every N] [--device cuda|cpu]
+        [--multihost [--coordinator HOST:PORT] [--num-processes N]
+         [--process-id I]]
 
 Builds the datasets, the loader and DINER from the config, snapshots the
 config and the git revision into the run directory, and trains (see
-train/loop.py): metrics.jsonl, checkpoints under <run>/ckpts (which
+train/loop.py): metrics.jsonl (and TensorBoard events under <run>/tb when
+the tensorboard package is installed), checkpoints under <run>/ckpts (which
 `cli.render_eval --ckpt` renders and scores), and validation renders scored
 into <run>/eval_<step>/, with cam-sweep videos in <run>/eval_<step>/
 cam_sweeps/ when the optimizer section has cam_sweep_settings. Runs on the
 CUDA device unless --device cpu. --seed seeds the model and the draws; the
-loader shuffles with its own seed, 0, as the JAX package's does. Not ported
-yet: --multihost (training across processes).
+loader shuffles with its own seed, 0, as the JAX package's does.
+
+--multihost trains data-parallel over torch.distributed, one process a
+card (NCCL; gloo with --device cpu). On one machine with N cards:
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m diner_tpu_torch.cli.train CONFIG.yaml --multihost
+
+torchrun sets MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK;
+--coordinator, --num-processes and --process-id stand for the first four;
+--multihost without any of them raises rather than train as one process.
+The config's batch_size is per process, as in the reference's DDP. Every
+rank writes into one run directory: under --logdir, the one rank 0 stamps.
 """
 
 from __future__ import annotations
@@ -61,36 +75,81 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("--multihost", action="store_true",
-                    help="not ported yet: training across processes")
+                    help="join a torch.distributed process group before "
+                         "training (reads MASTER_ADDR, MASTER_PORT, "
+                         "WORLD_SIZE, RANK and LOCAL_RANK, or the flags "
+                         "below)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rank 0's HOST:PORT")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.multihost:
-        raise SystemExit("--multihost is not ported to diner_tpu_torch yet: "
-                         "train on one device")
 
+    import torch.distributed as dist
+
+    from diner_tpu_torch.core.device import resolve_device
+    from diner_tpu_torch.parallel import (init_multihost, rank,
+                                          world_size)
+
+    dev = resolve_device(args.device)
+    own_group = args.multihost and not dist.is_initialized()
+    if args.multihost:
+        dev = init_multihost(args.coordinator, args.num_processes,
+                             args.process_id, device=dev)
+        if not dist.is_initialized():
+            raise ValueError(
+                "--multihost found no process group to join: pass "
+                "--coordinator, --num-processes and --process-id, or launch "
+                "under torchrun (python -m torch.distributed.run), which "
+                "sets MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK")
+        print(f"multihost: rank {rank()} of {world_size()} on {dev}")
+    try:
+        return _train(args, dev)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _time_stamp(dev) -> str:
+    """Rank 0's local time as YYYYmmdd_HHMMSS, on every rank (each rank's
+    own clock could name two run directories)."""
+    import torch
+
+    from diner_tpu_torch.parallel import world_size
+
+    stamp = torch.tensor([int(time.strftime("%Y%m%d%H%M%S"))],
+                         dtype=torch.int64, device=dev)
+    if world_size() > 1:
+        torch.distributed.broadcast(stamp, 0)
+    v = int(stamp.item())
+    return f"{v // 1_000_000:08d}_{v % 1_000_000:06d}"
+
+
+def _train(args, dev):
     import torch
 
     from diner_tpu_torch.cli.build import (build_dataset, build_diner,
                                            build_loader, optimizer_kwargs)
     from diner_tpu_torch.core.config import load_config
-    from diner_tpu_torch.core.device import resolve_device
     from diner_tpu_torch.eval.predict import create_prediction_folder
     from diner_tpu_torch.eval.suite import evaluate_folder
     from diner_tpu_torch.eval.sweep import create_cam_sweep
+    from diner_tpu_torch.parallel import is_main
     from diner_tpu_torch.train.loop import MetricLogger, train
 
-    dev = resolve_device(args.device)
     conf = load_config(args.config)
     if args.run_dir:
         logdir = Path(args.run_dir)
     else:
         logdir = Path(args.logdir or conf.get("logger", {}).get(
-            "kwargs", {}).get("save_dir", "outputs/run")) \
-            / time.strftime("%Y%m%d_%H%M%S")
-    logdir.mkdir(parents=True, exist_ok=True)
-    snap = logdir / "config.yaml"
-    if Path(args.config).resolve() != snap.resolve():
-        shutil.copy(args.config, snap)
-    (logdir / "GIT_REVISION").write_text(_git_revision() + "\n")
+            "kwargs", {}).get("save_dir", "outputs/run")) / _time_stamp(dev)
+    main_rank = is_main()
+    if main_rank:
+        logdir.mkdir(parents=True, exist_ok=True)
+        snap = logdir / "config.yaml"
+        if Path(args.config).resolve() != snap.resolve():
+            shutil.copy(args.config, snap)
+        (logdir / "GIT_REVISION").write_text(_git_revision() + "\n")
 
     torch.manual_seed(args.seed)
     train_set = build_dataset(conf["data"]["train"], stage="train")
@@ -103,7 +162,8 @@ def main(argv=None):
     opt_conf = conf.get("optimizer", {}).get("kwargs", {})
     n_score = int(opt_conf.get("n_samples_score_eval", 16))
     sweep_kw = dict(opt_conf.get("cam_sweep_settings") or {})
-    val_logger = MetricLogger(logdir)
+    # validation runs on rank 0 alone, which alone logs
+    val_logger = MetricLogger(logdir) if main_rank else None
 
     def val_fn(state, step):
         eval_dir = logdir / f"eval_{step:06d}"
@@ -141,7 +201,8 @@ def main(argv=None):
                 trainer_kw.get("val_check_interval"), train_loader),
             val_fn=val_fn, resume=args.resume, seed=args.seed, device=dev)
     finally:
-        val_logger.close()
+        if val_logger is not None:
+            val_logger.close()
     print(f"training done -> {logdir}")
     return state
 

@@ -4,8 +4,9 @@ diner_tpu.data.loader).
 A thread pool builds the samples of the next batches while the device
 steps. Each epoch reshuffles with numpy's RandomState(seed + epoch), so a
 seed gives the JAX package's index order. Per-process index slices (the
-DistributedSampler equivalent) come from `process_local_slice`, a copy of
-diner_tpu.parallel.mesh.process_local_slice.
+DistributedSampler equivalent) come from
+`parallel.mesh.process_local_slice`: each rank of a process group loads its
+own slice, padded so that every rank yields the same number of batches.
 """
 
 from __future__ import annotations
@@ -14,41 +15,11 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
 
 import numpy as np
 
 from diner_tpu_torch.data.contract import collate, to_device_batch
-
-
-def _process_grid():
-    """(process index, process count) of an initialized torch.distributed
-    group, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
-def process_local_slice(n: int, process_index: Optional[int] = None,
-                        process_count: Optional[int] = None,
-                        pad_to_equal: bool = False) -> List[int]:
-    """The indices of range(n) this process loads: every process_count-th
-    from process_index. pad_to_equal wraps indices so that every process
-    gets ceil(n / process_count) of them, as training needs (a short
-    process would run out of batches first)."""
-    pi, pc = _process_grid()
-    pi = pi if process_index is None else process_index
-    pc = pc if process_count is None else process_count
-    idx = list(range(pi, n, pc))
-    if pad_to_equal and n > 0:
-        target = -(-n // pc)
-        pos = pi + pc * len(idx)
-        while len(idx) < target:  # wrap like padded[pos] = indices[pos - n]
-            idx.append(pos - n)
-            pos += pc
-    return idx
+from diner_tpu_torch.parallel.mesh import process_local_slice
 
 
 class BatchLoader:

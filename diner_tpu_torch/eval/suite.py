@@ -4,7 +4,8 @@ the reports (port of diner_tpu.eval.suite).
 The file contract is the reference's (src/evaluation/eval_suite.py:14-124 in
 malteprinzler/diner): the filename suffixes below, average_scores.json,
 detailed_report.json, and examples.png with [refs | gt | pred | depth] rows.
-Metrics: ssim, psnr, l2, l1 (LPIPS is not ported yet).
+Metrics: ssim, psnr, l2, l1, and lpips when an LPIPS function is given
+(`nn.lpips.make_lpips_fn`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -30,9 +32,12 @@ EXAMPLE_PLOT_FILENAME = "examples.png"
 N_EXAMPLE_PLOTS = 5
 
 
-def evaluate_folder(source_dir, outdir, n_examples: int = N_EXAMPLE_PLOTS):
+def evaluate_folder(source_dir, outdir,
+                    lpips_fn: Optional[Callable] = None,
+                    n_examples: int = N_EXAMPLE_PLOTS):
     """Score all (gt, pred) pairs in `source_dir`; write the reports to
-    `outdir`. Returns the dict of mean metrics."""
+    `outdir`. lpips_fn (pred (H, W, 3) in [0, 1], gt) -> float adds an
+    lpips column. Returns the dict of mean metrics."""
     source_dir, outdir = Path(source_dir), Path(outdir)
     os.makedirs(outdir, exist_ok=True)
 
@@ -46,7 +51,8 @@ def evaluate_folder(source_dir, outdir, n_examples: int = N_EXAMPLE_PLOTS):
                                              SUFFIXES["pred"])).resolve()
                   for p in gt_paths]
 
-    scores = {k: [] for k in ("ssim", "psnr", "l2", "l1")}
+    scores = {k: [] for k in ("ssim", "psnr", "l2", "l1")
+              } | ({"lpips": []} if lpips_fn else {})
     for gt_p, pred_p in zip(gt_paths, pred_paths):
         gt = read_png(gt_p).astype(np.float32)[..., :3] / 255.0
         pred = read_png(pred_p).astype(np.float32)[..., :3] / 255.0
@@ -54,6 +60,8 @@ def evaluate_folder(source_dir, outdir, n_examples: int = N_EXAMPLE_PLOTS):
         scores["psnr"].append(psnr(pred, gt, data_range=1))
         scores["l2"].append(mse(pred, gt))
         scores["l1"].append(l1(pred, gt))
+        if lpips_fn:
+            scores["lpips"].append(float(lpips_fn(pred, gt)))
 
     avg = {k: float(np.mean(v)) for k, v in scores.items()}
     with open(outdir / AVERAGE_SCORE_FILENAME, "w") as f:

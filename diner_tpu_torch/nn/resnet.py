@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diner_tpu_torch.parallel.mesh import world_size
+
 STAGE_BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 STAGE_CHANNELS = (64, 128, 256, 512)
 
@@ -26,12 +28,20 @@ class BatchNorm(nn.BatchNorm2d):
     here): in train mode it normalizes with the batch mean and biased
     variance, as torch does, and updates the running variance with that
     biased variance too (torch updates it with the unbiased one). Eval is
-    torch's own."""
+    torch's own.
+
+    Across ranks (a process group of more than one), train mode normalizes
+    over the global batch, as the JAX package's global mesh does: the
+    ranks' sums, sums of squares and counts go through one all-reduce that
+    autograd differentiates (SyncBatchNorm's way), and the variance is
+    flax's mean(x^2) - mean(x)^2, clipped at 0."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         dims = (0, 2, 3)
+        if world_size() > 1:
+            return self._forward_synced(x, dims)
         with torch.no_grad():
             self.running_mean.lerp_(x.mean(dims), self.momentum)
             self.running_var.lerp_(x.var(dims, unbiased=False),
@@ -39,6 +49,24 @@ class BatchNorm(nn.BatchNorm2d):
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _forward_synced(self, x, dims):
+        from torch.distributed.nn.functional import all_reduce
+
+        C = x.shape[1]
+        count = x.new_full((1,), x.numel() // C)
+        stats = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims),
+                                      count]))
+        n = stats[-1]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C:2 * C] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 def make_norm(kind: str, channels: int) -> nn.Module:

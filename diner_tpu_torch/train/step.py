@@ -8,6 +8,15 @@ are restored from a copy taken before the forward pass; the reference
 raises NanError and skips the batch, deps/TransMVSNet/train.py:213-227).
 The step logs `skipped_nonfinite` (1.0 for a skipped batch). Reading the
 total's finiteness waits for the device once a step.
+
+Across ranks (a process group of more than one) the step is the JAX
+package's step on the global batch: each rank's losses are means over its
+rows, of equal count on every rank, so their mean over the ranks is the
+global batch's. One all-reduce a step, before the backward, sums the
+losses and a non-finite flag: the logged losses are the global means, and
+a batch that is not finite on any rank is skipped on every rank. After the
+backward the gradients are averaged over the ranks
+(`parallel.all_reduce_grads_`), which is the global batch's gradient.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ from typing import Dict
 
 import torch
 
+from diner_tpu_torch.parallel.mesh import (all_reduce_grads_,
+                                           all_reduce_sum_, world_size)
 from diner_tpu_torch.train.state import TrainState
 
 
@@ -37,9 +48,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     state.optimizer.zero_grad(set_to_none=True)
     losses = model.losses(batch, train=True, pix=pix, noise=noise,
                           generator=generator)
-    finite = bool(torch.isfinite(losses["total"]))
+    world = world_size()
+    names = list(losses)
+    total = losses["total"].detach()
+    packed = torch.stack([losses[k].detach().float() for k in names]
+                         + [(~torch.isfinite(total)).float()])
+    values = (all_reduce_sum_(packed) / world).tolist()
+    finite = values[-1] == 0.0
     if finite:
         losses["total"].backward()
+        all_reduce_grads_(p for g in state.optimizer.param_groups
+                          for p in g["params"])
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -47,7 +66,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         with torch.no_grad():
             for b, s in zip(buffers, saved):
                 b.copy_(s)
-    out = {k: float(v.detach()) for k, v in losses.items()}
+    out = dict(zip(names, values[:-1]))
     out["skipped_nonfinite"] = 0.0 if finite else 1.0
     return out
 

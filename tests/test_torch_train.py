@@ -632,9 +632,9 @@ def test_train_cli_on_cpu_then_render_eval_ckpt(tmp_path, capsys):
 
 
 def test_train_entry_points_need_cuda_unless_asked(monkeypatch, tmp_path):
-    """cli.train and train() default to CUDA and raise without it;
-    --multihost is refused; _resolve_val_every reads Lightning's
-    val_check_interval."""
+    """cli.train and train() default to CUDA and raise without it, with
+    --multihost too (a rank takes its card); _resolve_val_every reads
+    Lightning's val_check_interval."""
     from pathlib import Path
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -644,7 +644,7 @@ def test_train_entry_points_need_cuda_unless_asked(monkeypatch, tmp_path):
         train_cli.main([str(cfg), "--run-dir", str(tmp_path / "r")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(_Toy(), [], tmp_path / "t")
-    with pytest.raises(SystemExit, match="multihost"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main([str(cfg), "--multihost"])
     loader = list(range(8))
     assert train_cli._resolve_val_every(None, loader) is None
