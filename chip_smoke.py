@@ -74,8 +74,10 @@ last line:
      card over gloo with CUDA tensors, batch 1 each, against one process
      at batch 2 run first, all exact, on the same global batches and
      draws for 3 steps: global losses within 1e-4 relative, the parameters
-     within 1e-6 at 99.9% of the elements after the first step and within
-     2 lr a step after the last, the ranks bitwise equal; then cli/train
+     within 1e-6 at 99.9% of the elements after the first step, every
+     ResnetFC tensor's at 99.9% of its elements after the last and every
+     parameter within 2 lr a step there, the ranks bitwise equal (the
+     encoder's share after the last step is printed); then cli/train
      --multihost --logdir in the ranks' group (one run directory, rank 0's
      checkpoints and metrics) for 2 steps and a 2-rank --resume for 1;
      each rank's s/step (two processes on one card: not a scaling
@@ -115,6 +117,21 @@ last line:
      probabilities differ by more than 1e-5); cli/mvs eval at 864x1152
      with 5 views on the sphere scene in the MVSNet eval layout. The MVS
      path launches none of K1-K4;
+  10h. mvs_train: GT depth PFMs (512x640, mm, masked outside the cam
+     files' hypotheses 425-931 mm) of the 34 corner cams added to the DTU
+     tree; cli/mvs train at the reference DTU configuration (batch 1,
+     random weights from seed 0, 252 samples) for 12 steps with a save
+     every 6 and --profile (steps 5-10; the device time by operator and by
+     kernel), then --resume to 16: every loss finite, checkpoints at 6, 12
+     and 16, Adam's count 12 at the resume and 16 at the end; s/step after
+     warm-up and peak memory; one step on the card (TF32 off) against the
+     CPU at 512x640 (loss within 1e-3 relative, five tensors' gradients
+     within 1e-2 of their largest entry, the BatchNorm statistics within
+     1e-5 + 1e-4 relative); write --ckpt from the last checkpoint on the 4
+     corner samples (the net holds its state_dict, the PNGs differ from
+     phase 10g's); 3 finetune steps (the BlendedMVS layout by default) from
+     that checkpoint on a 5-view 576x768 BlendedMVS tree of the sphere
+     scene. No kernel launches;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
      route (phase 7; K4's backward: phase 10b; both K4's add the ddp
      phases'), error and times (K4's entry also the empty launch's);
@@ -185,6 +202,18 @@ SWEEP_FRAMES = 4
 DTU_TRAIN_STEPS = 3
 MVS_EVAL_HW = (864, 1152)   # GeneralEvalMVSDataset's caps
 MVS_TOP_OPS = 10
+# MVS training at the reference DTU configuration: the train run, its save
+# interval and the resume; the BlendedMVS tree's images (its low-res size);
+# the card against the CPU on one step
+MVS_NUMDEPTH = 192
+MVS_TRAIN_STEPS, MVS_SAVE_EVERY, MVS_RESUME_STEPS = 12, 6, 4
+MVS_FINETUNE_STEPS = 3
+BLD_HW = (576, 768)
+MVS_GRAD_CHECK = ("cost_regularization.0.prob.weight",
+                  "cost_regularization.2.prob.weight",
+                  "DepthNet.pixel_wise_net.conv2.weight",
+                  "FMT_with_pathway.smooth_2.weight",
+                  "feature.out3.7.weight")
 DDP_NCCL_STEPS = 4
 # the exact comparison's batch: the deterministic scatter of the field's
 # gathers needs int64 indices as large as the gathered rows (20 GiB more at
@@ -1247,8 +1276,9 @@ def phase_ddp_two_ranks(card):
     train_dtu.yaml's widths, against one process at batch 2 run first on
     the same global batches and draws, all exact (`_Exact`): DDP_STEPS
     steps' global losses within 1e-4 relative; the parameters within 1e-6
-    at 99.9% of the elements after the first step and after the last, and
-    within 2 lr a step everywhere; then cli/train --multihost in the same
+    at 99.9% of the elements after the first step, and after the last each
+    ResnetFC tensor's within 1e-6 at 99.9% of its elements and every
+    parameter within 2 lr a step; then cli/train --multihost in the same
     group (--logdir: one run directory, rank 0's stamp, written by rank 0),
     and a resume for DDP_RESUME_STEPS step."""
     import gc
@@ -1317,31 +1347,50 @@ def phase_ddp_two_ranks(card):
     lr = 1e-4
     names = list(ref["grad_rms"])
     rms = torch.cat([ref["grad_rms"][k].reshape(-1) for k in names])
-    diffs = [torch.cat([(p[k] - q[k]).abs().reshape(-1) for k in names])
+    diffs = [{k: (p[k] - q[k]).abs().reshape(-1) for k in names}
              for p, q in zip(r0["params"], ref["params"])]
-    close = [float((d <= 1e-6).float().mean()) for d in diffs]
-    worst_p = [float(d.max()) for d in diffs]
+    flat = [torch.cat(list(d.values())) for d in diffs]
+    close = float((flat[0] <= 1e-6).float().mean())
+    worst_p = [float(d.max()) for d in flat]
+
+    def share(d, part):
+        return float(torch.cat([d[k] for k in names if k.startswith(part)])
+                     .le(1e-6).float().mean())
+
+    mlp_close = {k: float((d <= 1e-6).float().mean())
+                 for k, d in diffs[1].items() if k.startswith("mlp.")}
+    worst_mlp = min(mlp_close, key=mlp_close.get)
     log(f"ddp_two_ranks: parameters within 1e-6 of batch 2's at "
-        f"{close[0]:.6f} of {diffs[0].numel()} elements after step 1 "
-        f"(largest difference {worst_p[0]:.3e}), at {close[1]:.6f} after "
-        f"step {DDP_STEPS} (largest {worst_p[1]:.3e}, where the gradient "
-        f"rms, Adam's sqrt(v_hat), is {float(rms[diffs[1].argmax()]):.3e})")
+        f"{close:.6f} of {flat[0].numel()} elements after step 1 (largest "
+        f"difference {worst_p[0]:.3e}); after step {DDP_STEPS}: ResnetFC's "
+        f"at {share(diffs[1], 'mlp.'):.6f} (its least tensor "
+        f"{worst_mlp} at {mlp_close[worst_mlp]:.6f}), the encoder's at "
+        f"{share(diffs[1], 'encoder.'):.6f}, largest difference "
+        f"{worst_p[1]:.3e} where the gradient rms, Adam's sqrt(v_hat), is "
+        f"{float(rms[flat[1].argmax()]):.3e}")
     check(all(torch.equal(p[k], v) for p, q in zip(r1["params"],
                                                    r0["params"])
               for k, v in q.items()),
           "ddp_two_ranks: the ranks' parameters differ")
     # after the first step the parameters differ by the gradients' order of
-    # sums alone; each later step's gradients magnify what the parameters
-    # differ by (on the CPU, parameters moved by 1e-6 change 60-75% of the
-    # next gradient's entries by more than 1e-3 relative), and Adam moves
-    # an entry whose gradient flips sign by up to 2 lr a step
-    check(close[0] >= 0.999 and worst_p[0] <= 2 * lr,
-          f"ddp_two_ranks: parameters within 1e-6 at {close[0]:.6f} of the "
+    # sums alone. The later steps' encoder gradients move with what the
+    # parameters differ by, and Adam moves an entry whose gradient changes
+    # sign by up to 2 lr a step: on the H100 the encoder read 0.966 of its
+    # elements within 1e-6 after 3 steps, and a planted fault, the last
+    # step on rank 0's rows alone, 0.995, so the encoder's share cannot
+    # tell them apart. ResnetFC's tensors can: the sound run read 0.99975
+    # in its least tensor and 0.999987 over all of them, that fault 0.957
+    # over all and at most 0.988 in each, the fault in its 4-entry
+    # lin_out.bias alone 0.75 there
+    check(close >= 0.999 and worst_p[0] <= 2 * lr,
+          f"ddp_two_ranks: parameters within 1e-6 at {close:.6f} of the "
           f"elements after one step, largest difference {worst_p[0]:.3e}")
-    check(close[1] >= 0.999 and worst_p[1] <= 2 * DDP_STEPS * lr,
-          f"ddp_two_ranks: parameters within 1e-6 at {close[1]:.6f} of the "
-          f"elements after {DDP_STEPS} steps, largest difference "
-          f"{worst_p[1]:.3e} (at most {2 * DDP_STEPS} lr)")
+    check(mlp_close[worst_mlp] >= 0.999
+          and worst_p[1] <= 2 * DDP_STEPS * lr,
+          f"ddp_two_ranks: ResnetFC's {worst_mlp} within 1e-6 at "
+          f"{mlp_close[worst_mlp]:.6f} of its elements after {DDP_STEPS} "
+          f"steps, the parameters {worst_p[1]:.3e} apart (at most "
+          f"{2 * DDP_STEPS} lr)")
     cli_steps = DDP_CLI_STEPS + DDP_RESUME_STEPS
     check(ckpts == [f"step_{DDP_CLI_STEPS:08d}.pt",
                     f"step_{cli_steps:08d}.pt"]
@@ -2227,6 +2276,279 @@ def phase_mvs(root: Path, card):
         f"depth_est, confidence, cams and images checked")
 
 
+def _dtu_mvs_cam():
+    """The DTU tree's full-resolution K (512x640) and the MVS hypotheses of
+    its cam files: depth_min 425 mm, interval 2.5 x 1.06, 192 bins."""
+    import numpy as np
+
+    K = np.array([[0.9 * 640, 0, 320], [0, 0.9 * 640, 256], [0, 0, 1]],
+                 np.float32)
+    dmin, dint = 425.0, 2.5 * 1.06
+    return K, dmin, dmin + dint * (MVS_NUMDEPTH - 1)
+
+
+def write_dtu_gt_depths(root: Path, card):
+    """The GT depth maps Depths/scan1/depth_map_XXXX.pfm (512x640, mm, the
+    cam files' unit) of every corner view DTUMVSDataset trains on, from the
+    sphere scene that write_dtu_tree rendered: depth where it lies inside
+    the cam files' hypotheses, 0 (masked) elsewhere. Returns the ids."""
+    import numpy as np
+
+    from diner_tpu_torch.data.codecs import write_pfm
+    from diner_tpu_torch.data.dtu import DTUDataset
+    from diner_tpu_torch.mvs.datasets import corner_view_metas
+
+    t = time.perf_counter()
+    K, dmin, dmax = _dtu_mvs_cam()
+    grid = _dtu_grid()
+    ids = sorted({tgt for tgt, _ in corner_view_metas("train")})
+    views = _sphere_views(512, 640, DTU_SCENE_SCALE, [grid[i] for i in ids],
+                          K)
+    kept = fg = 0
+    for i, (_, _, d) in zip(ids, views):
+        mm = d[..., 0] / DTUDataset.SCALE_FACTOR_DEFAULT
+        gt = np.where((mm >= dmin) & (mm <= dmax), mm, 0.0).astype(np.float32)
+        write_pfm(root / "Depths" / "scan1" / f"depth_map_{i:04d}.pfm", gt)
+        kept += int((gt > 0).sum())
+        fg += int((mm > 0).sum())
+        check(gt.shape == (512, 640) and ((gt == 0) | ((gt >= dmin)
+                                                       & (gt <= dmax))).all(),
+              f"GT depth of cam {i} outside {dmin}..{dmax}")
+    check(kept > 0.2 * fg, f"GT: only {kept} of {fg} foreground pixels "
+          f"inside the hypotheses {dmin}..{dmax} mm")
+    log(f"mvs_train: GT depth PFMs of {len(ids)} corner cams at 512x640, "
+        f"{kept} of {fg} foreground pixels inside the hypotheses "
+        f"{dmin:.1f}..{dmax:.1f} mm (the rest masked), written in "
+        f"{time.perf_counter() - t:.2f} s")
+    return ids
+
+
+def write_bld_tree(root: Path):
+    """The sphere scene in the BlendedMVS layout at BLD_HW: 5 cams of the
+    DTU grid (full-resolution K, mm), JPEG images, the rendered depth maps
+    (mm) and a pair.txt with every view a reference of the 4 others; the
+    cam files' bounds [700, 1100] mm hold the scene's depths."""
+    import numpy as np
+    from PIL import Image
+
+    from diner_tpu_torch.data.codecs import write_pfm
+    from diner_tpu_torch.data.dtu import DTUDataset
+
+    H_, W_ = BLD_HW
+    K = np.array([[0.9 * W_, 0, W_ / 2], [0, 0.9 * W_, H_ / 2], [0, 0, 1]],
+                 np.float32)
+    grid = _dtu_grid()
+    exts = [grid[i] for i in (24, 23, 25, 17, 31)]
+    views = _sphere_views(H_, W_, DTU_SCENE_SCALE, exts, K)
+    scan = root / "sphere"
+    for sub in ("blended_images", "cams", "rendered_depth_maps"):
+        (scan / sub).mkdir(parents=True)
+    sf = DTUDataset.SCALE_FACTOR_DEFAULT
+    for v, (e, (rgb, _, d)) in enumerate(zip(exts, views)):
+        Image.fromarray(_u8(rgb)).save(scan / "blended_images" /
+                                       f"{v:08d}.jpg", quality=95)
+        mm = e.copy()
+        mm[:3, 3] /= sf
+        lines = ["extrinsic"] + [" ".join(f"{x:.6f}" for x in row)
+                                 for row in mm]
+        lines += ["", "intrinsic"] + [" ".join(f"{x:.6f}" for x in row)
+                                      for row in K]
+        lines += ["", f"700.0 {400.0 / MVS_NUMDEPTH:.6f} {MVS_NUMDEPTH} "
+                      f"1100.0"]
+        (scan / "cams" / f"{v:08d}_cam.txt").write_text("\n".join(lines)
+                                                        + "\n")
+        write_pfm(scan / "rendered_depth_maps" / f"{v:08d}.pfm",
+                  (d[..., 0] / sf).astype(np.float32))
+    pair = [str(len(exts))]
+    for ref in range(len(exts)):
+        srcs = [s for s in range(len(exts)) if s != ref]
+        pair += [str(ref), f"{len(srcs)} " + " ".join(f"{s} 100.0"
+                                                      for s in srcs)]
+    (scan / "cams" / "pair.txt").write_text("\n".join(pair) + "\n")
+    (root / "list.txt").write_text("sphere\n")
+    return root / "list.txt"
+
+
+def _mvs_train_card_vs_cpu(sample, card):
+    """One train step of the cascade (random weights from seed 0, batch 1)
+    on the card with TF32 off against the same step on the CPU: the loss
+    within 1e-3 relative (a rounding of the stage-2 and stage-3 hypotheses
+    may move a GT pixel to the next bin), the gradients of MVS_GRAD_CHECK
+    within 1e-2 of each tensor's largest entry (float32 backward sums in
+    other orders and algorithms; the deep ones are the least conditioned),
+    every BatchNorm running statistic within 1e-5 + 1e-4 relative."""
+    import torch
+
+    from diner_tpu_torch.mvs.net import TransMVSNet
+    from diner_tpu_torch.data import collate
+    from diner_tpu_torch.mvs.train import cascade_loss
+
+    torch.manual_seed(0)
+    sd = TransMVSNet().state_dict()
+
+    def step(dev):
+        net = TransMVSNet()
+        net.load_state_dict(sd)
+        net.to(dev).train()
+        t = time.perf_counter()
+        total, _ = cascade_loss(net, collate([sample]), torch.device(dev),
+                                (0.5, 1.0, 2.0))
+        total.backward()
+        loss = total.item()
+        params = dict(net.named_parameters())
+        return (loss, time.perf_counter() - t,
+                {n: params[n].grad.cpu() for n in MVS_GRAD_CHECK},
+                {k: v.cpu() for k, v in net.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))})
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (lg, _, gg, sg), (lc, cpu_s, gc, sc) = (step(d) for d in ("cuda",
+                                                                  "cpu"))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    loss_rel = abs(lg - lc) / abs(lc)
+    grad_rel = {n: float((gg[n] - gc[n]).abs().max() / gc[n].abs().max())
+                for n in MVS_GRAD_CHECK}
+    stat_err = max(float(((sg[k] - sc[k]).abs()
+                          / (1e-5 + 1e-4 * sc[k].abs())).max()) for k in sc)
+    log(f"mvs_train card vs cpu (TF32 off, one step at 512x640, "
+        f"batch 1; the CPU took {cpu_s:.2f} s): loss {lg:.6f} vs {lc:.6f} "
+        f"({loss_rel:.2e} rel); gradients, max |diff| / max |cpu|: "
+        + ", ".join(f"{n} {v:.2e}" for n, v in grad_rel.items())
+        + f"; {len(sc)} BatchNorm running statistics at {stat_err:.3f} of "
+        f"their tolerance [{card}]")
+    check(loss_rel <= 1e-3, f"mvs_train card vs cpu: loss {lg} vs {lc}")
+    check(all(v <= 1e-2 for v in grad_rel.values()),
+          f"mvs_train card vs cpu: gradients {grad_rel}")
+    check(stat_err <= 1.0, f"mvs_train card vs cpu: running statistics "
+          f"at {stat_err} of their tolerance")
+
+
+def phase_mvs_train(root: Path, card, tmp: Path):
+    """MVS training at the reference DTU configuration (512x640, ndepths
+    48/32/8 of 192, batch 1, random weights from seed 0) on the DTU tree
+    with GT depths added: cli/mvs train for MVS_TRAIN_STEPS with a save
+    every MVS_SAVE_EVERY and --profile, then --resume to
+    MVS_TRAIN_STEPS + MVS_RESUME_STEPS; the card against the CPU on one
+    step; write --ckpt from the trained checkpoint on the 4 corner
+    samples; finetune on a BlendedMVS tree from that checkpoint. No kernel
+    launches."""
+    import numpy as np
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+    from diner_tpu_torch.data.codecs import read_png
+    from diner_tpu_torch.data.dtu import DTUDataset
+    from diner_tpu_torch.mvs.datasets import DTUMVSDataset
+    from diner_tpu_torch.train import ckpt_io
+
+    t_phase = time.perf_counter()
+    write_dtu_gt_depths(root, card)
+    listfile = root / "splits" / "dtu_train_all.txt"
+    logdir = tmp / "mvs_run"
+    argv = ["train", "--datapath", str(root), "--listfile", str(listfile),
+            "--logdir", str(logdir), "--batch-size", "1", "--seed", "0",
+            "--log-every", "1"]
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    recs = mvs_cli.main(argv + ["--max-steps", str(MVS_TRAIN_STEPS),
+                                "--save-every", str(MVS_SAVE_EVERY),
+                                "--profile"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check((logdir / "trace" / "trace.json").exists(),
+          "mvs_train --profile wrote no trace")
+    first = ckpt_io.restore_latest(logdir / "ckpts", MVS_TRAIN_STEPS)[0]
+    end = MVS_TRAIN_STEPS + MVS_RESUME_STEPS
+    recs2 = mvs_cli.main(argv + ["--max-steps", str(end), "--resume"])
+    check(_launches() == _expect(), f"mvs train launched {_launches()}")
+    check([r["step"] for r in recs] == list(range(MVS_TRAIN_STEPS))
+          and [r["step"] for r in recs2] == list(range(MVS_TRAIN_STEPS,
+                                                       end)),
+          f"mvs train steps {[r['step'] for r in recs + recs2]}")
+    losses = [r["loss"] for r in recs + recs2]
+    check(all(np.isfinite(v) for r in recs + recs2 for v in r.values()),
+          f"mvs train: non-finite losses {losses}")
+    check(ckpt_io.all_steps(logdir / "ckpts")
+          == [MVS_SAVE_EVERY, MVS_TRAIN_STEPS, end],
+          f"mvs train checkpoints {ckpt_io.all_steps(logdir / 'ckpts')}")
+    counts = {int(s["step"]) for s in first["optimizer"]["state"].values()}
+    last = ckpt_io.restore_latest(logdir / "ckpts")[0]
+    counts_end = {int(s["step"]) for s in last["optimizer"]["state"].values()}
+    check(counts == {MVS_TRAIN_STEPS} and counts_end == {end},
+          f"mvs train: Adam's counts {counts} at the resume, {counts_end} "
+          f"at the end")
+    # after warm-up: not step 0, not the profiled steps 5-9, not the
+    # resumed run's first step
+    secs = ([r["seconds"] for r in recs[1:5] + recs[10:]]
+            + [r["seconds"] for r in recs2[1:]])
+    log(f"mvs_train: cli/mvs train at 512x640, ndepths 48,32,8 of "
+        f"{MVS_NUMDEPTH}, batch 1, lr 1e-3 (the first update at lr 0), "
+        f"{len(DTUMVSDataset(root, listfile, mode='train'))} samples: "
+        f"{MVS_TRAIN_STEPS} steps, --resume from step {MVS_TRAIN_STEPS} "
+        f"(Adam's count {MVS_TRAIN_STEPS}) to {end} (count {end}); "
+        f"s/step after warm-up median {statistics.median(secs):.4f}, min "
+        f"{min(secs):.4f}, max {max(secs):.4f} ({len(secs)} steps; "
+        f"read, step and a sync), peak memory {peak:.2f} GiB [{card}]; "
+        f"losses {[round(v, 4) for v in losses]}")
+
+    sample = DTUMVSDataset(root, listfile, mode="train")[0]
+    _mvs_train_card_vs_cpu(sample, card)
+
+    # write --ckpt: the trained weights replace phase_mvs's random ones
+    val = root / "splits" / "dtu_val_all.txt"
+    pngs = [root / "Depths" / "scan1" / f"depth_map_{c:04d}_TransMVSNet.png"
+            for c in DTUDataset.SRC_CAM_IDCS]
+    before = [read_png(p) for p in pngs]
+    wargv = ["write", "--datapath", str(root), "--listfile", str(val),
+             "--ckpt", str(logdir / "ckpts")]
+    net = mvs_cli.build_net(mvs_cli.parser().parse_args(wargv),
+                            torch.device("cuda"))
+    held = net.state_dict()
+    check(all(torch.equal(v.cpu(), held[k].cpu())
+              for k, v in last["model"].items()) and len(held) == len(
+                  last["model"]),
+          "write --ckpt: the net does not hold the checkpoint's state_dict")
+    del net, held
+    _zero_launches()
+    seconds = mvs_cli.main(wargv)
+    check(_launches() == _expect(), f"mvs write --ckpt launched "
+          f"{_launches()}")
+    moved = [float((read_png(p).astype(np.int64) - b).__abs__().mean())
+             for p, b in zip(pngs, before)]
+    check(len(seconds) == 4 and all(m > 0 for m in moved),
+          f"write --ckpt: {len(seconds)} samples, mean |PNG change| {moved}")
+    log(f"mvs_train: write --ckpt {logdir.name}/ckpts (step {end}) on the 4 "
+        f"corner samples: the net holds the checkpoint's state_dict; the "
+        f"depth PNGs moved from phase mvs's random-weight ones by "
+        f"{[round(m, 1) for m in moved]} units on average; "
+        f"{[round(x, 4) for x in seconds]} s per sample [{card}]")
+
+    bld_list = write_bld_tree(tmp / "bld")
+    ft = mvs_cli.main(["finetune", "--datapath", str(tmp / "bld"),
+                       "--listfile", str(bld_list), "--logdir",
+                       str(tmp / "mvs_ft"), "--torch-ckpt",
+                       str(ckpt_io.checkpoint_path(logdir / "ckpts", end)),
+                       "--max-steps", str(MVS_FINETUNE_STEPS),
+                       "--log-every", "1"])
+    check([r["step"] for r in ft] == list(range(MVS_FINETUNE_STEPS))
+          and all(np.isfinite(v) for r in ft for v in r.values())
+          and all({"epe", "less1", "less3"} <= set(r) for r in ft),
+          f"finetune: {ft}")
+    check(_launches() == _expect(), f"mvs finetune launched {_launches()}")
+    log(f"mvs_train: finetune (--dataset bld by default) from the step-{end}"
+        f" checkpoint, {MVS_FINETUNE_STEPS} steps on a BlendedMVS tree "
+        f"(5 views at {BLD_HW[0]}x{BLD_HW[1]}, 4 a sample): losses "
+        f"{[round(r['loss'], 4) for r in ft]}, epe "
+        f"{[round(r['epe'], 3) for r in ft]}, s/step "
+        f"{[round(r['seconds'], 4) for r in ft]} [{card}]")
+    log(f"mvs_train: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2279,6 +2601,7 @@ def main() -> int:
             phase_sweep(dtu_root, card)
             phase_dtu_train(dtu_root, card)
             phase_mvs(dtu_root, card)
+            phase_mvs_train(dtu_root, card, work)
         for k in kernels:
             k["launches"] = launches[k["name"]]
     except Exception:  # every phase failure ends the run without a result

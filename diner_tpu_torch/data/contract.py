@@ -56,13 +56,16 @@ def validate_sample(sample: Dict) -> None:
 
 def collate(samples: List[Dict]) -> Dict:
     """Stack samples into a batch: arrays and numeric scalars are stacked,
-    other values (names) listed."""
+    dicts of arrays (the MVS samples' pyramids) stacked key by key, other
+    values (names) listed."""
     out = {}
     for k in samples[0]:
         v0 = samples[0][k]
         if isinstance(v0, np.ndarray) or (np.isscalar(v0)
                                           and not isinstance(v0, str)):
             out[k] = np.stack([np.asarray(s[k]) for s in samples])
+        elif isinstance(v0, dict):
+            out[k] = {kk: np.stack([s[k][kk] for s in samples]) for kk in v0}
         else:
             out[k] = [s[k] for s in samples]
     return out

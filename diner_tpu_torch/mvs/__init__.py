@@ -1,5 +1,6 @@
-"""TransMVSNet inference (port of diner_tpu.mvs): the cascade that writes
-the depth and confidence priors the DINER readers consume."""
+"""TransMVSNet (port of diner_tpu.mvs): the cascade that writes the depth
+and confidence priors the DINER readers consume, its losses and its
+training (mvs/losses.py, mvs/train.py)."""
 
 from diner_tpu_torch.mvs.checkpoint import from_jax, load_reference_state_dict
 from diner_tpu_torch.mvs.net import TransMVSNet

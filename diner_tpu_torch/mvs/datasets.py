@@ -9,6 +9,9 @@ diner_tpu.mvs.datasets; the same layouts, views and numpy samples).
   4-camera sets of the DINER readers' metas, on the port's readers.
 - GeneralEvalMVSDataset: the MVSNet eval layout <scan>/{images, cams,
   pair.txt}, images capped to 864x1152 and snapped down to multiples of 32.
+- BlendedMVSDataset: the BlendedMVS finetuning layout, with GT pyramids.
+- TnTEvalDataset: Tanks and Temples scenes at their capture sizes, snapped
+  down to multiples of 32, no GT.
 
 A sample holds imgs (V, H, W, 3), proj_matrices {"stage1".."stage3":
 (V, 2, 4, 4)} ([extrinsics, intrinsics] with the intrinsics at the stage's
@@ -98,7 +101,7 @@ def _k4(K, divide: float = 1.0):
 
 @register("DTUMVSDataset")
 class DTUMVSDataset:
-    """DTU for depth-prior writing (and, later, MVS training)."""
+    """DTU for MVS training and depth-prior writing."""
 
     def __init__(self, datapath, listfile, mode: str = "train",
                  nviews: int = 4, ndepths: int = 192,
@@ -256,14 +259,9 @@ class GeneralEvalMVSDataset:
         self.interval_scale = interval_scale
         self.img_ext = img_ext
         self.max_h, self.max_w = max_h, max_w
-        self.metas = []
-        for scan in scans:
-            pair = (self.datapath / scan / "pair.txt").read_text().splitlines()
-            for i in range(int(pair[0])):
-                ref = int(pair[1 + 2 * i])
-                srcs = [int(x) for x in pair[2 + 2 * i].split()[1::2]]
-                if srcs:
-                    self.metas.append((scan, ref, srcs))
+        self.metas = [(scan, ref, srcs) for scan in scans
+                      for ref, srcs in _read_pair(
+                          self.datapath / scan / "pair.txt") if srcs]
 
     def __len__(self):
         return len(self.metas)
@@ -307,20 +305,16 @@ class GeneralEvalMVSDataset:
         return K, ext, dmin, dint * self.interval_scale
 
     def __getitem__(self, idx):
-        from PIL import Image
-
         scan, ref, srcs = self.metas[idx]
         view_ids = [ref] + srcs[: self.nviews - 1]
         imgs, projs = [], []
         depth_values = None
         for i, vid in enumerate(view_ids):
-            img = np.asarray(Image.open(
-                self.datapath / scan / "images" / f"{vid:08d}{self.img_ext}"),
-                np.float32) / 255.0
+            img = _read_rgb(
+                self.datapath / scan / "images" / f"{vid:08d}{self.img_ext}")
             K, ext, dmin, dint = self._read_cam(
                 self.datapath / scan / "cams" / f"{vid:08d}_cam.txt")
-            img, K = self.scale_mvs_input(img[..., :3], K,
-                                          self.max_w, self.max_h)
+            img, K = self.scale_mvs_input(img, K, self.max_w, self.max_h)
             imgs.append(img)
             # the cam files hold full-resolution K; stage 1 is at /4
             projs.append(np.stack([ext, _k4(K, 4.0)]))
@@ -396,3 +390,156 @@ class MultifaceMVSDataset(FacescapeMVSDataset):
             sample["mask"] = {k: (v > 0).astype(np.float32)
                               for k, v in sample["depth"].items()}
         return sample
+
+
+def _read_pair(path):
+    """pair.txt -> [(reference view, [source views])] in file order."""
+    pair = Path(path).read_text().splitlines()
+    out = []
+    for i in range(int(pair[0])):
+        ref = int(pair[1 + 2 * i])
+        out.append((ref, [int(x) for x in pair[2 + 2 * i].split()[1::2]]))
+    return out
+
+
+def _read_rgb(path):
+    from PIL import Image
+
+    return np.asarray(Image.open(path), np.float32)[..., :3] / 255.0
+
+
+@register("BlendedMVSDataset")
+class BlendedMVSDataset:
+    """BlendedMVS for finetuning: <scan>/blended_images/XXXXXXXX.jpg,
+    <scan>/cams/{pair.txt, XXXXXXXX_cam.txt},
+    <scan>/rendered_depth_maps/XXXXXXXX.pfm. A reference view needs
+    nviews - 1 sources in pair.txt. The cam files hold full-resolution K
+    (stage 1 takes it / 4) and the depth bounds [min, ..., max]: the
+    hypotheses are min + i * (max - min) / ndepths, and the GT mask keeps
+    the depths inside the first and the last hypothesis. dpath is the
+    reference view's rendered depth map, next to which `cli/mvs write`
+    puts its priors."""
+
+    def __init__(self, datapath, listfile, mode: str = "train",
+                 nviews: int = 4, ndepths: int = 192,
+                 interval_scale: float = 1.0):
+        self.datapath = Path(datapath)
+        self.nviews = nviews
+        self.ndepths = ndepths
+        if isinstance(listfile, (str, Path)):
+            scans = [ln.strip() for ln in
+                     Path(listfile).read_text().splitlines() if ln.strip()]
+        else:
+            scans = list(listfile)
+        self.metas = [(scan, ref, srcs) for scan in scans
+                      for ref, srcs in _read_pair(
+                          self.datapath / scan / "cams" / "pair.txt")
+                      if len(srcs) >= nviews - 1]
+
+    def __len__(self):
+        return len(self.metas)
+
+    def _read_cam(self, path):
+        K, ext, vals = _read_cam_txt(path)
+        dmin, dmax = float(vals[0]), float(vals[-1])
+        return K, ext, dmin, (dmax - dmin) / self.ndepths
+
+    def __getitem__(self, idx):
+        scan, ref, srcs = self.metas[idx]
+        root = self.datapath / scan
+        imgs, projs = [], []
+        for i, vid in enumerate([ref] + srcs[: self.nviews - 1]):
+            imgs.append(_read_rgb(root / "blended_images" / f"{vid:08d}.jpg"))
+            K, ext, dmin, dint = self._read_cam(
+                root / "cams" / f"{vid:08d}_cam.txt")
+            projs.append(np.stack([ext, _k4(K, 4.0)]))
+            if i == 0:
+                ref_dmin, ref_dint = dmin, dint
+        dpath = root / "rendered_depth_maps" / f"{ref:08d}.pfm"
+        depth = read_pfm(dpath)[0]
+        depth_end = ref_dmin + ref_dint * (self.ndepths - 1)
+        mask = ((depth >= ref_dmin) & (depth <= depth_end)).astype(np.float32)
+        return {"imgs": np.stack(imgs),
+                "proj_matrices": _stage_pyramid_projs(np.stack(projs)),
+                "depth": _pyramid(depth), "mask": _pyramid(mask),
+                "depth_values": ref_dmin + np.arange(
+                    self.ndepths, dtype=np.float32) * ref_dint,
+                "depth_interval": np.asarray(ref_dint, np.float32),
+                "scan": scan, "dpath": str(dpath)}
+
+
+# the capture sizes (W, H) of the Tanks and Temples scenes
+TNT_IMAGE_SIZES = {
+    "Family": (1920, 1080), "Francis": (1920, 1080), "Horse": (1920, 1080),
+    "Lighthouse": (2048, 1080), "M60": (2048, 1080), "Panther": (2048, 1080),
+    "Playground": (1920, 1080), "Train": (1920, 1080),
+    "Auditorium": (1920, 1080), "Ballroom": (1920, 1080),
+    "Courtroom": (1920, 1080), "Museum": (1920, 1080),
+    "Palace": (1920, 1080), "Temple": (1920, 1080),
+}
+
+
+@register("TnTEvalDataset")
+class TnTEvalDataset:
+    """Tanks and Temples for evaluation (no GT): <scan>/images/XXXXXXXX.jpg,
+    <scan>/cams_1/XXXXXXXX_cam.txt (stage-1 K), <scan>/pair.txt. Images are
+    capped to the scene's capture size and snapped down to multiples of 32
+    with K scaled to match; with fix_res, the first image read fixes the
+    resolution of every later one (bilinear through uint8, K scaled). The
+    hypotheses are min + i * (max - min) / ndepths of the cam file's
+    bounds."""
+
+    def __init__(self, datapath, scans, nviews: int = 5, ndepths: int = 192,
+                 image_sizes=None, fix_res: bool = True):
+        self.datapath = Path(datapath)
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.image_sizes = dict(TNT_IMAGE_SIZES, **(image_sizes or {}))
+        self.fix_res = fix_res
+        self._fixed_hw = None
+        self.metas = [(scan, ref, srcs) for scan in scans
+                      for ref, srcs in _read_pair(
+                          self.datapath / scan / "pair.txt") if srcs]
+
+    def __len__(self):
+        return len(self.metas)
+
+    def _read_cam(self, path):
+        K, ext, vals = _read_cam_txt(path)
+        dmin, dmax = float(vals[0]), float(vals[-1])
+        return K, ext, dmin, (dmax - dmin) / self.ndepths
+
+    def __getitem__(self, idx):
+        from PIL import Image
+
+        scan, ref, srcs = self.metas[idx]
+        view_ids = [ref] + srcs[: min(self.nviews, len(srcs) + 1) - 1]
+        max_w, max_h = self.image_sizes.get(scan, (1920, 1080))
+        imgs, projs = [], []
+        for i, vid in enumerate(view_ids):
+            K, ext, dmin, dint = self._read_cam(
+                self.datapath / scan / "cams_1" / f"{vid:08d}_cam.txt")
+            img, K = GeneralEvalMVSDataset.scale_mvs_input(
+                _read_rgb(self.datapath / scan / "images" / f"{vid:08d}.jpg"),
+                K, max_w, max_h)
+            if self.fix_res and self._fixed_hw is None:
+                self._fixed_hw = img.shape[:2]
+            if self._fixed_hw is not None and img.shape[:2] != self._fixed_hw:
+                sh = self._fixed_hw[0] / img.shape[0]
+                sw = self._fixed_hw[1] / img.shape[1]
+                img = np.asarray(Image.fromarray(
+                    (img * 255).astype(np.uint8)).resize(
+                        (self._fixed_hw[1], self._fixed_hw[0]),
+                        Image.BILINEAR), np.float32) / 255.0
+                K = K.copy()
+                K[0] *= sw
+                K[1] *= sh
+            imgs.append(img)
+            projs.append(np.stack([ext, _k4(K)]))
+            if i == 0:
+                depth_values = dmin + np.arange(self.ndepths,
+                                                dtype=np.float32) * dint
+        return {"imgs": np.stack(imgs),
+                "proj_matrices": _stage_pyramid_projs(np.stack(projs)),
+                "depth_values": depth_values,
+                "view_ids": np.asarray(view_ids), "scan": scan}

@@ -13,16 +13,17 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from diner_tpu_torch.mvs.layers import (BN_EPS, ConvBnRelu, DCNLayer,
-                                        lecun_normal_)
+from diner_tpu_torch.mvs.layers import BN_EPS, ConvBnRelu, DCNLayer
+from diner_tpu_torch.nn.init import lecun_normal_
+from diner_tpu_torch.nn.resnet import BatchNorm
 
 
 class _DCNHead(nn.Sequential):
     def __init__(self, cin: int, mid: int, out: int, first_kernel: int = 3):
         super().__init__(
             ConvBnRelu(cin, mid, kernel=first_kernel),
-            DCNLayer(mid, mid), nn.BatchNorm2d(mid, eps=BN_EPS), nn.ReLU(),
-            DCNLayer(mid, mid), nn.BatchNorm2d(mid, eps=BN_EPS), nn.ReLU(),
+            DCNLayer(mid, mid), BatchNorm(mid, eps=BN_EPS), nn.ReLU(),
+            DCNLayer(mid, mid), BatchNorm(mid, eps=BN_EPS), nn.ReLU(),
             DCNLayer(mid, out))
 
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diner_tpu_torch.mvs.layers import lecun_normal_
+from diner_tpu_torch.nn.init import lecun_normal_
 
 # flax's LayerNorm default, which the JAX package's FMT uses
 LN_EPS = 1e-6

@@ -5,7 +5,10 @@ Each block's submodules carry the names of the reference TransMVSNet's
 (`conv`, `bn`; a DCN's `conv_offset_mask`, `weight`, `bias`), so that a
 reference state dict loads into the port by its own keys. Initialization
 follows the JAX package's: convs He-normal over fan-out, the DCN's offset
-and mask branch zero (the op starts as a plain conv at mask 0.5).
+and mask branch zero (the op starts as a plain conv at mask 0.5). The
+BatchNorms update their running statistics in train mode as flax's do
+(momentum 0.9 there, the biased batch variance: `nn/resnet.py`); eval mode
+is torch's own.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from diner_tpu_torch.mvs.ops import deform_conv2d
+from diner_tpu_torch.nn.resnet import BatchNorm, BatchNorm3d
 
 BN_EPS = 1e-5
 
@@ -24,14 +28,6 @@ def kaiming_fan_out_(w, fan_out: int):
     """He-normal over fan-out, as the JAX package's convs draw theirs."""
     with torch.no_grad():
         return w.normal_(0.0, math.sqrt(2.0 / fan_out))
-
-
-def lecun_normal_(w, fan_in: int):
-    """flax's default kernel init: a normal truncated at two standard
-    deviations, scaled to variance 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std)
 
 
 def _he_conv(conv):
@@ -45,7 +41,7 @@ class ConvBnRelu(nn.Module):
         super().__init__()
         self.conv = _he_conv(nn.Conv2d(cin, cout, kernel, stride,
                                        (kernel - 1) // 2, bias=False))
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm(cout, eps=BN_EPS)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))
@@ -56,7 +52,7 @@ class Conv3dBnRelu(nn.Module):
         super().__init__()
         self.conv = _he_conv(nn.Conv3d(cin, cout, kernel, stride,
                                        (kernel - 1) // 2, bias=False))
-        self.bn = nn.BatchNorm3d(cout, eps=BN_EPS)
+        self.bn = BatchNorm3d(cout, eps=BN_EPS)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))
@@ -71,7 +67,7 @@ class Deconv3dBnRelu(nn.Module):
         self.conv = nn.ConvTranspose3d(cin, cout, 3, stride=2, padding=1,
                                        output_padding=1, bias=False)
         kaiming_fan_out_(self.conv.weight, cout * 27)
-        self.bn = nn.BatchNorm3d(cout, eps=BN_EPS)
+        self.bn = BatchNorm3d(cout, eps=BN_EPS)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))

@@ -1,5 +1,4 @@
-"""TransMVSNet, the cascade MVS network (port of diner_tpu.mvs.net), for
-inference.
+"""TransMVSNet, the cascade MVS network (port of diner_tpu.mvs.net).
 
 Three stages, coarse to fine: FeatureNet FPN -> FMT linear attention ->
 per stage a plane-sweep cost volume (the source views' pairwise
@@ -10,9 +9,15 @@ largest probability. Stage 1 sweeps the full [min, max] range; stages 2
 and 3 sweep +-ndepth/2 intervals about the bilinearly upsampled previous
 depth.
 
-Inference runs the BatchNorm layers on their running statistics and the
-FeatureNet trunk once over all B*V images, as the JAX package's inference
-does. The module tree carries the reference TransMVSNet's names (feature,
+Inference (eval mode) runs the BatchNorm layers on their running
+statistics and the FeatureNet trunk once over all B*V images, as the JAX
+package's inference does. Train mode calls FeatureNet once per view, so
+that BatchNorm's batch statistics are per view and its running statistics
+are updated once per view, in view order, as the JAX package's shared
+module is in training. The view weights and the depth handed to the next
+stage carry no gradient, as in JAX.
+
+The module tree carries the reference TransMVSNet's names (feature,
 FMT_with_pathway, cost_regularization.i, DepthNet.pixel_wise_net), so that
 its state dicts load by their own keys (mvs/checkpoint.py).
 """
@@ -27,10 +32,10 @@ from torch import nn
 
 from diner_tpu_torch.mvs.feature_net import FeatureNet
 from diner_tpu_torch.mvs.fmt import FMTWithPathway
-from diner_tpu_torch.mvs.layers import (Conv3dBnRelu, Deconv3dBnRelu,
-                                        lecun_normal_)
+from diner_tpu_torch.mvs.layers import Conv3dBnRelu, Deconv3dBnRelu
 from diner_tpu_torch.mvs.ops import (depth_range_samples, depth_wta,
                                      homo_warping)
+from diner_tpu_torch.nn.init import lecun_normal_
 
 STAGE_SCALES = (4, 2, 1)
 
@@ -125,7 +130,7 @@ class DepthNet(nn.Module):
                "photometric_confidence": prob_volume.amax(dim=1),
                "prob_volume": prob_volume, "depth_values": depth_values}
         if view_weights is None:
-            view_weights = torch.cat(vw_list, dim=1)
+            view_weights = torch.cat(vw_list, dim=1).detach()
         return out, view_weights
 
 
@@ -156,9 +161,12 @@ class TransMVSNet(nn.Module):
         B, V, _, H, W = imgs.shape
         depth_interval = ((depth_values[:, -1] - depth_values[:, 0])
                           / depth_values.shape[1])
-        fall = self.feature(imgs.reshape(B * V, 3, H, W))
-        features = [{k: f.reshape(B, V, *f.shape[1:])[:, v]
-                     for k, f in fall.items()} for v in range(V)]
+        if self.training:
+            features = [self.feature(imgs[:, v]) for v in range(V)]
+        else:
+            fall = self.feature(imgs.reshape(B * V, 3, H, W))
+            features = [{k: f.reshape(B, V, *f.shape[1:])[:, v]
+                         for k, f in fall.items()} for v in range(V)]
         features = self.FMT_with_pathway(features)
 
         outputs = {}

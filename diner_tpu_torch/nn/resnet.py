@@ -23,12 +23,13 @@ STAGE_BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 STAGE_CHANNELS = (64, 128, 256, 512)
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d with flax's running statistics (momentum 0.9 there, 0.1
+class _FlaxBatchStats:
+    """BatchNorm with flax's running statistics (momentum 0.9 there, 0.1
     here): in train mode it normalizes with the batch mean and biased
     variance, as torch does, and updates the running variance with that
     biased variance too (torch updates it with the unbiased one). Eval is
-    torch's own.
+    torch's own. The statistics reduce over every axis but the channels
+    (axis 1), so one forward serves 2D and 3D maps.
 
     Across ranks (a process group of more than one), train mode normalizes
     over the global batch, as the JAX package's global mesh does: the
@@ -39,7 +40,7 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        dims = (0, 2, 3)
+        dims = (0, *range(2, x.dim()))
         if world_size() > 1:
             return self._forward_synced(x, dims)
         with torch.no_grad():
@@ -47,8 +48,10 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.lerp_(x.var(dims, unbiased=False),
                                    self.momentum)
             self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        # torch.batch_norm, not F.batch_norm: flax normalizes a channel of
+        # one value (to the bias), where F.batch_norm raises
+        return torch.batch_norm(x, self.weight, self.bias, None, None, True,
+                                0.0, self.eps, torch.backends.cudnn.enabled)
 
     def _forward_synced(self, x, dims):
         from torch.distributed.nn.functional import all_reduce
@@ -64,9 +67,18 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
+        shape = (1, C) + (1,) * (x.dim() - 2)
         scale = self.weight * torch.rsqrt(var + self.eps)
-        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
-                + self.bias[None, :, None, None])
+        return ((x - mean.view(shape)) * scale.view(shape)
+                + self.bias.view(shape))
+
+
+class BatchNorm(_FlaxBatchStats, nn.BatchNorm2d):
+    """BatchNorm2d with flax's running statistics (`_FlaxBatchStats`)."""
+
+
+class BatchNorm3d(_FlaxBatchStats, nn.BatchNorm3d):
+    """BatchNorm3d with flax's running statistics (`_FlaxBatchStats`)."""
 
 
 def make_norm(kind: str, channels: int) -> nn.Module:

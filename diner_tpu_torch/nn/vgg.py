@@ -5,8 +5,8 @@ Slices end after relu1_1, relu2_1, relu3_1 and relu4_1, torchvision's
 malteprinzler/diner). Convolutions 3x3 with padding 1 and bias, max pools
 2x2 stride 2. Input and outputs keep the JAX package's NHWC layout; the
 tower runs NCHW inside. Its parameters are frozen (requires_grad False):
-the loss trains the NeRF, not the tower. Random weights (fan-in normal, as
-flax's lecun init without its truncation) serve wiring only; real ones come
+the loss trains the NeRF, not the tower. Random weights (flax's default
+`lecun_normal`, as the JAX tower draws them) serve wiring only; real ones come
 from a reference checkpoint (models/lightning.py) or from flax params
 (models/from_jax.py).
 """
@@ -18,6 +18,8 @@ from typing import List
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from diner_tpu_torch.nn.init import lecun_normal_
 
 # (name, in channels, out channels) in torchvision's order; a max pool comes
 # before conv2_1, conv3_1 and conv4_1
@@ -44,7 +46,7 @@ class Vgg19Features(nn.Module):
         self.n_slices = n_slices
         for name, c_in, c_out in CONVS:
             conv = nn.Conv2d(c_in, c_out, 3, padding=1)
-            nn.init.normal_(conv.weight, std=(9 * c_in) ** -0.5)
+            lecun_normal_(conv.weight, 9 * c_in)
             nn.init.zeros_(conv.bias)
             self.add_module(name, conv)
         self.requires_grad_(False)

@@ -695,7 +695,8 @@ def test_cli_eval_matches_jax(cascade, trees, tmp_path):
 
 def test_cli_runs_on_cuda_unless_told_otherwise(trees, monkeypatch, tmp_path):
     """Both subcommands default to the CUDA device and raise without one;
-    the flags left out of the port are refused, not ignored."""
+    the flags left out of the port are refused, not ignored; --ckpt with
+    no checkpoint raises; train needs its data and log flags."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     root, listfile = trees["dtu"]
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -705,9 +706,13 @@ def test_cli_runs_on_cuda_unless_told_otherwise(trees, monkeypatch, tmp_path):
         mvs_cli.main(["eval", "--datapath", str(trees["eval"]), "--testlist",
                       "scan9", "--outdir", str(tmp_path)] + CLI_ARCH)
     for flag in (["--compute-dtype", "bfloat16"], ["--dcn-impl", "window"],
-                 ["--data-parallel"], ["--ckpt", "x"]):
+                 ["--data-parallel"]):
         with pytest.raises(SystemExit):
             mvs_cli.main(["write", "--datapath", str(root), "--listfile",
                           str(listfile), "--device", "cpu"] + flag)
+    with pytest.raises(FileNotFoundError):
+        mvs_cli.main(["write", "--datapath", str(root), "--listfile",
+                      str(listfile), "--device", "cpu", "--ckpt",
+                      str(tmp_path / "x")] + CLI_ARCH)
     with pytest.raises(SystemExit):
         mvs_cli.main(["train", "--datapath", str(root)])
