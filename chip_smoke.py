@@ -74,10 +74,17 @@ last line:
      card over gloo with CUDA tensors, batch 1 each, against one process
      at batch 2 run first, all exact, on the same global batches and
      draws for 3 steps: global losses within 1e-4 relative, the parameters
-     within 1e-6 at 99.9% of the elements after the first step, every
-     ResnetFC tensor's at 99.9% of its elements after the last and every
-     parameter within 2 lr a step there, the ranks bitwise equal (the
-     encoder's share after the last step is printed); then cli/train
+     within 1e-6 at 99.9% of the elements after the first step; the last
+     step starts everywhere from the reference's own state before it
+     (parameters, Adam's moments, the schedule), and after it every
+     tensor, ResnetFC's and the encoder's, within 1e-6 at 99.9% of its
+     elements and every parameter within 2 lr; the ranks bitwise equal
+     (`--ddp-gate-probe` runs the phase sound and with a planted fault,
+     the encoder's last step on rank 0's rows alone, which the gate must
+     refuse; `--mvs-profiles` profiles the MVS options, phase 10i, apart
+     from the main run; `--mvs-ranks-probe` runs phase 10i, then phase
+     10j sound and without the ranks' gradient all-reduce, which its
+     gates must refuse); then cli/train
      --multihost --logdir in the ranks' group (one run directory, rank 0's
      checkpoints and metrics) for 2 steps and a 2-rank --resume for 1;
      each rank's s/step (two processes on one card: not a scaling
@@ -115,8 +122,9 @@ last line:
      CPU on one sample with TF32 off (where a stage's hypotheses agree:
      confidence within 1e-4, the same winner wherever the two largest
      probabilities differ by more than 1e-5); cli/mvs eval at 864x1152
-     with 5 views on the sphere scene in the MVSNet eval layout. The MVS
-     path launches none of K1-K4;
+     with 5 views on the sphere scene in the MVSNet eval layout, each view
+     a reference (its outputs stay for phase 10k). The MVS path launches
+     none of K1-K4;
   10h. mvs_train: GT depth PFMs (512x640, mm, masked outside the cam
      files' hypotheses 425-931 mm) of the 34 corner cams added to the DTU
      tree; cli/mvs train at the reference DTU configuration (batch 1,
@@ -132,6 +140,43 @@ last line:
      phase 10g's); 3 finetune steps (the BlendedMVS layout by default) from
      that checkpoint on a 5-view 576x768 BlendedMVS tree of the sphere
      scene. No kernel launches;
+  10i. mvs_options: cli/mvs write at the same width with the gather DCN
+     in float32 (phase 10g's priors, again), --dcn-impl window and
+     --compute-dtype bfloat16 on the 4 corner samples: s per sample, peak
+     memory, and the share of pixels whose depth agrees with the gather
+     float32 one (window: within 1e-4 relative; bfloat16: within a tenth
+     of stage 3's hypothesis interval); cli/mvs train with window and with
+     bfloat16 at batch 1 and 2, 3 steps each: s/step, peak memory, whether
+     the batch fits (an out-of-memory is recorded, not hidden) and the
+     window offset audit's max |k + offset| on the trained weights;
+  10j. mvs_ranks: two gloo ranks sharing the card (child processes of this
+     script, cli/mvs train --multihost at batch 1, the cascade in float64,
+     its first stage alone, at base channels 2 and cost-regularization
+     channels 2 at 512x640: with flat random-weight probabilities the full
+     cascade's WTA near-ties move later stages apart under any rounding,
+     and two float64 ranks of the full width do not fit beside each other)
+     against one process at batch 2, exact, two steps (the second at the
+     warmup's first lr above 0): the loss within 1e-6 relative, the global
+     gradient (Adam's first moment in the checkpoints) within 5e-2 of each
+     tensor's largest entry, or of 1e-3 of the largest overall where a
+     tensor's gradient nearly cancels (the float32 softmax's backward
+     rounds differently at batch 1 and 2; a missing all-reduce moves the
+     gradients by 16 to 430 times their scale), the parameters after the
+     second step within a tenth of its lr on 99.9% of the entries (1.0
+     sound, 0.55 without the all-reduce, on the H100), the BatchNorm
+     statistics within 1e-7 + 1e-7 relative, the ranks bitwise equal; then
+     one NCCL rank at the full width in float32, 4 steps: the gradient
+     all-reduce under 2% of a step;
+  10k. fuse: cli/mvs fuse, normal, dynamic and consensus, on phase 10g's
+     eval outputs (5 views at 864x1152, random weights), at the CLI's
+     thresholds and at looser ones that keep points: points, s and peak
+     memory per scan; the normal method's PLY against the CPU's (counts
+     within 1e-3, for pixels at a threshold's rounding, and all but 1e-3
+     of the points matched within 1e-5 of the cloud's extent in the same
+     colour);
+     consensus fusion of a
+     49-view DTU scan at 512x640 (the sphere scene): s and peak memory.
+     The MVS phases launch none of K1-K4;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
      route (phase 7; K4's backward: phase 10b; both K4's add the ddp
      phases'), error and times (K4's entry also the empty launch's);
@@ -201,6 +246,7 @@ MULTIFACE_RAW = (2048, 1334)   # MultiFace's frames, H x W
 SWEEP_FRAMES = 4
 DTU_TRAIN_STEPS = 3
 MVS_EVAL_HW = (864, 1152)   # GeneralEvalMVSDataset's caps
+MVS_EVAL_VIEWS = 5          # each a reference of the 4 others
 MVS_TOP_OPS = 10
 # MVS training at the reference DTU configuration: the train run, its save
 # interval and the resume; the BlendedMVS tree's images (its low-res size);
@@ -214,6 +260,29 @@ MVS_GRAD_CHECK = ("cost_regularization.0.prob.weight",
                   "DepthNet.pixel_wise_net.conv2.weight",
                   "FMT_with_pathway.smooth_2.weight",
                   "feature.out3.7.weight")
+# the MVS options' training runs; MVS training across ranks: two gloo
+# ranks with the cascade in float64 and its first stage alone (see
+# phase_mvs_ranks) at a quarter of the channels (two float64 ranks of the
+# full width do not fit one card beside each other), then one NCCL rank
+# at the full width in float32
+MVS_OPTION_STEPS = 3
+MVS_RANK_STEPS, MVS_NCCL_STEPS = 2, 4
+MVS_RANK_WIDTH = ("--ndepths", "48", "--depth_inter_r", "4",
+                  "--base_channels", "2", "--cr_base_chs", "2")
+# two ranks' loss and global gradient against one process's: the loss
+# relative, each tensor's gradient within this share of its largest entry.
+# The softmax stays float32: on the H100 its backward rounds differently at
+# batch 1 and 2, and the cascade's gradients, sums that cancel to a small
+# part of their terms, carry that as up to 6.5e-3 of a tensor's largest
+# entry; without the gradient all-reduce the H100 read 16 to 430 times a
+# tensor's scale
+MVS_RANK_LOSS_TOL, MVS_RANK_GRAD_TOL = 1e-6, 5e-2
+# the share of parameter entries within a tenth of the last step's lr of
+# the reference's after MVS_RANK_STEPS: 1.000000 on the H100 (the largest
+# difference 0.057 lr), 0.551767 without the gradient all-reduce
+MVS_RANK_PARAM_SHARE = 0.999
+# fuse's thresholds at which random weights' eval outputs keep points
+FUSE_LOOSE = ["--conf", "0", "--thres_view", "1", "--num_consistent", "1"]
 DDP_NCCL_STEPS = 4
 # the exact comparison's batch: the deterministic scatter of the field's
 # gathers needs int64 indices as large as the gathered rows (20 GiB more at
@@ -1219,13 +1288,22 @@ def _global_draws(model, batch, step: int):
     return pix, noise
 
 
-def _explicit_steps(cfg: Path, rows: slice, dev):
+def _explicit_steps(cfg: Path, rows: slice, dev, save_last=None,
+                    load_last=None, plant=False):
     """DDP_STEPS train steps of train_dtu.yaml's model (seed 0, broadcast
     from rank 0 in a group) on the global batches of scenes (0, 1), (2, 3),
     ... with the global draws of _global_draws; this process trains on
-    `rows` of each. Returns the losses, s/step, the parameters after the
+    `rows` of each. Just before the last step the reference writes its
+    NeRF, Adam and schedule states to `save_last` and the ranks replace
+    theirs by that file's (`load_last`), so that the last step starts from
+    the same state everywhere. `plant` is the gate's own check: the last
+    step's encoder gradient is rank 0's rows' alone (the mean over ranks
+    everywhere else). Returns the losses, s/step, the parameters after the
     first and the last step, and the gradients' rms as Adam holds it."""
     import torch
+    import torch.distributed as dist
+
+    import diner_tpu_torch.train.step as step_mod
 
     from diner_tpu_torch.cli.build import (build_dataset, build_diner,
                                            optimizer_kwargs)
@@ -1244,16 +1322,45 @@ def _explicit_steps(cfg: Path, rows: slice, dev):
     opt_kw = optimizer_kwargs(conf)
     state = create_train_state(model, opt_kw.pop("lr"), **opt_kw)
     losses, seconds, params = [], [], []
+    real_all_reduce = step_mod.all_reduce_grads_
+
+    def encoder_from_rank0(params_):
+        params_ = list(params_)
+        enc = {id(p) for p in model.nerf.encoder.parameters()}
+        local = [(p, p.grad.clone()) for p in params_
+                 if id(p) in enc and p.grad is not None]
+        real_all_reduce(params_)
+        for p, g in local:
+            dist.broadcast(g, 0)
+            p.grad.copy_(g)
+
     for step in range(DDP_STEPS):
         batch = to_tensors(to_device_batch(collate(
             [train_set[i] for i in (2 * step, 2 * step + 1)])), "cpu")
         pix, noise = _global_draws(model, batch, step)
         local = {k: v[rows].to(dev) for k, v in batch.items()}
+        last = step == DDP_STEPS - 1
+        if last and save_last is not None:
+            torch.save({"nerf": model.nerf.state_dict(),
+                        "optimizer": state.optimizer.state_dict(),
+                        "scheduler": state.scheduler.state_dict()},
+                       save_last)
+        if last and load_last is not None:
+            pre = torch.load(load_last, map_location="cpu",
+                             weights_only=True)
+            model.nerf.load_state_dict(pre["nerf"])
+            state.optimizer.load_state_dict(pre["optimizer"])
+            state.scheduler.load_state_dict(pre["scheduler"])
+        step_mod.all_reduce_grads_ = (encoder_from_rank0 if last and plant
+                                      else real_all_reduce)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        losses.append(train_step(state, local, pix=pix[rows].to(dev),
-                                 noise=tuple(x[rows].to(dev)
-                                             for x in noise)))
+        try:
+            losses.append(train_step(state, local, pix=pix[rows].to(dev),
+                                     noise=tuple(x[rows].to(dev)
+                                                 for x in noise)))
+        finally:
+            step_mod.all_reduce_grads_ = real_all_reduce
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
         params.append({k: v.detach().to("cpu", copy=True)
@@ -1271,16 +1378,20 @@ def _explicit_steps(cfg: Path, rows: slice, dev):
             "params": [params[0], params[-1]]}
 
 
-def phase_ddp_two_ranks(card):
+def phase_ddp_two_ranks(card, plant=False):
     """Two ranks share cuda:0 over gloo (CUDA tensors), batch 1 each, at
     train_dtu.yaml's widths, against one process at batch 2 run first on
     the same global batches and draws, all exact (`_Exact`): DDP_STEPS
     steps' global losses within 1e-4 relative; the parameters within 1e-6
-    at 99.9% of the elements after the first step, and after the last each
-    ResnetFC tensor's within 1e-6 at 99.9% of its elements and every
-    parameter within 2 lr a step; then cli/train --multihost in the same
+    at 99.9% of the elements after the first step; the last step starts
+    from the reference's own state before it (parameters, Adam's moments
+    and the schedule, copied into both ranks), and after it every tensor,
+    the encoder's and ResnetFC's, within 1e-6 at 99.9% of its elements and
+    every parameter within 2 lr; then cli/train --multihost in the same
     group (--logdir: one run directory, rank 0's stamp, written by rank 0),
-    and a resume for DDP_RESUME_STEPS step."""
+    and a resume for DDP_RESUME_STEPS step. `plant` runs the gate's own
+    check: the ranks' last step takes the encoder's gradient from rank
+    0's rows alone, which the gate must refuse."""
     import gc
     import os
 
@@ -1294,7 +1405,8 @@ def phase_ddp_two_ranks(card):
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         with _Exact():
-            ref = _explicit_steps(cfg, slice(0, 2), torch.device("cuda"))
+            ref = _explicit_steps(cfg, slice(0, 2), torch.device("cuda"),
+                                  save_last=tmp / "pre_last.pt")
         ref_launches = _launches()
         ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(ref_launches == _expect(k4=DDP_STEPS, k4_backward=DDP_STEPS),
@@ -1307,7 +1419,7 @@ def phase_ddp_two_ranks(card):
         t = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
-             str(r), str(tmp), coordinator],
+             str(r), str(tmp), coordinator] + (["--plant"] if plant else []),
             env=dict(os.environ, **_ddp_env(cli_port, r, 2)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(2)]
@@ -1357,40 +1469,42 @@ def phase_ddp_two_ranks(card):
         return float(torch.cat([d[k] for k in names if k.startswith(part)])
                      .le(1e-6).float().mean())
 
-    mlp_close = {k: float((d <= 1e-6).float().mean())
-                 for k, d in diffs[1].items() if k.startswith("mlp.")}
-    worst_mlp = min(mlp_close, key=mlp_close.get)
+    last_close = {k: float((d <= 1e-6).float().mean())
+                  for k, d in diffs[1].items()}
+    least = {part: min((k for k in last_close if k.startswith(part)),
+                       key=last_close.get) for part in ("mlp.", "encoder.")}
     log(f"ddp_two_ranks: parameters within 1e-6 of batch 2's at "
         f"{close:.6f} of {flat[0].numel()} elements after step 1 (largest "
-        f"difference {worst_p[0]:.3e}); after step {DDP_STEPS}: ResnetFC's "
-        f"at {share(diffs[1], 'mlp.'):.6f} (its least tensor "
-        f"{worst_mlp} at {mlp_close[worst_mlp]:.6f}), the encoder's at "
-        f"{share(diffs[1], 'encoder.'):.6f}, largest difference "
-        f"{worst_p[1]:.3e} where the gradient rms, Adam's sqrt(v_hat), is "
-        f"{float(rms[flat[1].argmax()]):.3e}")
+        f"difference {worst_p[0]:.3e}); after step {DDP_STEPS}, started "
+        f"from the reference's state: ResnetFC's at "
+        f"{share(diffs[1], 'mlp.'):.6f} (its least tensor {least['mlp.']} "
+        f"at {last_close[least['mlp.']]:.6f}), the encoder's at "
+        f"{share(diffs[1], 'encoder.'):.6f} (its least tensor "
+        f"{least['encoder.']} at {last_close[least['encoder.']]:.6f}), "
+        f"largest difference {worst_p[1]:.3e} where the gradient rms, "
+        f"Adam's sqrt(v_hat), is {float(rms[flat[1].argmax()]):.3e}"
+        + (" [planted: the encoder's last step on rank 0's rows]"
+           if plant else ""))
     check(all(torch.equal(p[k], v) for p, q in zip(r1["params"],
                                                    r0["params"])
               for k, v in q.items()),
           "ddp_two_ranks: the ranks' parameters differ")
     # after the first step the parameters differ by the gradients' order of
-    # sums alone. The later steps' encoder gradients move with what the
-    # parameters differ by, and Adam moves an entry whose gradient changes
-    # sign by up to 2 lr a step: on the H100 the encoder read 0.966 of its
-    # elements within 1e-6 after 3 steps, and a planted fault, the last
-    # step on rank 0's rows alone, 0.995, so the encoder's share cannot
-    # tell them apart. ResnetFC's tensors can: the sound run read 0.99975
-    # in its least tensor and 0.999987 over all of them, that fault 0.957
-    # over all and at most 0.988 in each, the fault in its 4-entry
-    # lin_out.bias alone 0.75 there
+    # sums alone, and so do they after the last, which starts from the
+    # reference's own state: without that copy the earlier steps' drift
+    # entered the encoder's last-step gradients (0.966 of its elements
+    # within 1e-6 after 3 steps on the H100, against a planted last-step
+    # fault's 0.995), so only ResnetFC's tensors could be gated
     check(close >= 0.999 and worst_p[0] <= 2 * lr,
           f"ddp_two_ranks: parameters within 1e-6 at {close:.6f} of the "
           f"elements after one step, largest difference {worst_p[0]:.3e}")
-    check(mlp_close[worst_mlp] >= 0.999
-          and worst_p[1] <= 2 * DDP_STEPS * lr,
-          f"ddp_two_ranks: ResnetFC's {worst_mlp} within 1e-6 at "
-          f"{mlp_close[worst_mlp]:.6f} of its elements after {DDP_STEPS} "
-          f"steps, the parameters {worst_p[1]:.3e} apart (at most "
-          f"{2 * DDP_STEPS} lr)")
+    for part, name in (("ResnetFC", least["mlp."]),
+                       ("the encoder", least["encoder."])):
+        check(last_close[name] >= 0.999 and worst_p[1] <= 2 * lr,
+              f"ddp_two_ranks: {part}'s {name} within 1e-6 at "
+              f"{last_close[name]:.6f} of its elements after step "
+              f"{DDP_STEPS}, the parameters {worst_p[1]:.3e} apart (at "
+              f"most 2 lr from the same state)")
     cli_steps = DDP_CLI_STEPS + DDP_RESUME_STEPS
     check(ckpts == [f"step_{DDP_CLI_STEPS:08d}.pt",
                     f"step_{cli_steps:08d}.pt"]
@@ -1427,7 +1541,8 @@ def phase_ddp_two_ranks(card):
                    for o in outs) for n in r0["launches_cli"]}
 
 
-def ddp_rank_child(r: int, tmp: Path, coordinator: str) -> int:
+def ddp_rank_child(r: int, tmp: Path, coordinator: str,
+                   plant: bool = False) -> int:
     """Rank r of phase_ddp_two_ranks, in its own process on cuda:0."""
     import torch
     import torch.distributed as dist
@@ -1442,7 +1557,8 @@ def ddp_rank_child(r: int, tmp: Path, coordinator: str) -> int:
     cfg = tmp / "train.yaml"
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
-    out = _explicit_steps(cfg, slice(r, r + 1), dev)
+    out = _explicit_steps(cfg, slice(r, r + 1), dev,
+                          load_last=tmp / "pre_last.pt", plant=plant)
     out["launches_explicit"] = _launches()
     _zero_launches()
     # cli/train in this group (--multihost keeps a group it finds)
@@ -2025,9 +2141,11 @@ def phase_dtu_train(root: Path, card):
         f"(4 threads) [{card}]; launches {launches}")
 
 
-def _mvs_profile(net, batch, card):
-    """One cascade under torch.profiler: the top MVS_TOP_OPS aten ops by
-    their own device time, and the device's busy share of the wall time."""
+def _mvs_profile(net, batch, card, label="mvs profile: one sample",
+                 step=None):
+    """One cascade under torch.profiler, or `step()` (a training step)
+    when given: the top MVS_TOP_OPS aten ops by their own device time, and
+    the device's busy share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2035,8 +2153,11 @@ def _mvs_profile(net, batch, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        with torch.inference_mode():
-            net(*batch)
+        if step is not None:
+            step()
+        else:
+            with torch.inference_mode():
+                net(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     ops = sorted((e for e in prof.key_averages()
@@ -2047,7 +2168,7 @@ def _mvs_profile(net, batch, card):
                   if e.device_type == DeviceType.CUDA) / 1e3
     op_ms = sum(e.self_device_time_total for e in ops) / 1e3
     check(ops, "mvs profile: torch.profiler saw no device time")
-    log(f"mvs profile: one sample, {wall_ms:.2f} ms wall, device busy "
+    log(f"{label}, {wall_ms:.2f} ms wall, device busy "
         f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), aten ops' own device "
         f"time {op_ms:.2f} ms [{card}]; top {MVS_TOP_OPS} ops by device "
         f"time:")
@@ -2123,7 +2244,7 @@ def _mvs_reach(args, dv):
 def write_mvs_eval_scan(root: Path):
     """The sphere scene in the MVSNet eval layout at MVS_EVAL_HW: 5 cams of
     the DTU grid (the centre and its 4 neighbours; full-resolution K, mm),
-    their PNG images and a pair.txt whose first two views are references
+    their PNG images and a pair.txt in which every view is a reference
     with the other 4 as sources."""
     import numpy as np
     from PIL import Image
@@ -2145,15 +2266,15 @@ def write_mvs_eval_scan(root: Path):
         mm[:3, 3] /= DTUDataset.SCALE_FACTOR_DEFAULT
         write_mvsnet_cam(root / "cams" / f"{v:08d}_cam.txt", mm, K, 425.0,
                          2.5)
-    lines = ["2"]
-    for ref in (0, 1):
+    lines = [str(len(exts))]
+    for ref in range(len(exts)):
         srcs = [s for s in range(len(exts)) if s != ref]
         lines += [str(ref), f"{len(srcs)} " + " ".join(f"{s} 100.0"
                                                        for s in srcs)]
     (root / "pair.txt").write_text("\n".join(lines) + "\n")
 
 
-def phase_mvs(root: Path, card):
+def phase_mvs(root: Path, card, eval_root: Path):
     """cli/mvs write at full width on the DTU tree (4 samples: the corner
     cams 30, 10, 6 and 35 at light 3), its 12 PNGs checked; one sample's
     profile; render_eval of the fast DTU preset from the priors just
@@ -2244,35 +2365,34 @@ def phase_mvs(root: Path, card):
           f"pixels")
     del net, batch
 
-    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
-        tmp = Path(tmp)
-        write_mvs_eval_scan(tmp / "scan1")
-        _zero_launches()
-        torch.cuda.reset_peak_memory_stats()
-        seconds = mvs_cli.main(["eval", "--datapath", str(tmp), "--testlist",
-                                "scan1", "--outdir", str(tmp / "out"),
-                                "--img_ext", ".png"])
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        check(_launches() == _expect(), f"mvs eval launched {_launches()}")
-        out = tmp / "out" / "scan1"
-        lo, hi = _mvs_reach(args, 425.0 + np.arange(args.numdepth) * 2.5
-                            * 1.06)
-        for ref in (0, 1):
-            depth, _ = read_pfm(out / "depth_est" / f"{ref:08d}.pfm")
-            conf, _ = read_pfm(out / "confidence" / f"{ref:08d}.pfm")
-            img = read_png(out / "images" / f"{ref:08d}.png")
-            check(depth.shape == conf.shape == MVS_EVAL_HW
-                  and img.shape == (*MVS_EVAL_HW, 3)
-                  and np.isfinite(depth).all() and depth.min() >= lo - 1e-3
-                  and depth.max() <= hi + 1e-3 and np.isfinite(conf).all()
-                  and conf.min() >= 0 and conf.max() <= 1
-                  and (out / "cams" / f"{ref:08d}_cam.txt").exists(),
-                  f"mvs eval view {ref}: depth {depth.shape} "
-                  f"{depth.min()}..{depth.max()}, conf {conf.min()}.."
-                  f"{conf.max()}")
-    log(f"mvs eval: 2 reference views at {MVS_EVAL_HW[0]}x{MVS_EVAL_HW[1]} "
-        f"with 5 views each, {[round(x, 4) for x in seconds]} s per view "
-        f"(the first warms up), peak memory {peak:.2f} GiB [{card}]; "
+    # the eval outputs stay for phase_fuse
+    write_mvs_eval_scan(eval_root / "scan1")
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = mvs_cli.main(["eval", "--datapath", str(eval_root),
+                            "--testlist", "scan1", "--outdir",
+                            str(eval_root / "out"), "--img_ext", ".png"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(_launches() == _expect(), f"mvs eval launched {_launches()}")
+    out = eval_root / "out" / "scan1"
+    lo, hi = _mvs_reach(args, 425.0 + np.arange(args.numdepth) * 2.5 * 1.06)
+    for ref in range(MVS_EVAL_VIEWS):
+        depth, _ = read_pfm(out / "depth_est" / f"{ref:08d}.pfm")
+        conf, _ = read_pfm(out / "confidence" / f"{ref:08d}.pfm")
+        img = read_png(out / "images" / f"{ref:08d}.png")
+        check(depth.shape == conf.shape == MVS_EVAL_HW
+              and img.shape == (*MVS_EVAL_HW, 3)
+              and np.isfinite(depth).all() and depth.min() >= lo - 1e-3
+              and depth.max() <= hi + 1e-3 and np.isfinite(conf).all()
+              and conf.min() >= 0 and conf.max() <= 1
+              and (out / "cams" / f"{ref:08d}_cam.txt").exists(),
+              f"mvs eval view {ref}: depth {depth.shape} "
+              f"{depth.min()}..{depth.max()}, conf {conf.min()}.."
+              f"{conf.max()}")
+    log(f"mvs eval: {MVS_EVAL_VIEWS} reference views at {MVS_EVAL_HW[0]}x"
+        f"{MVS_EVAL_HW[1]} with {MVS_EVAL_VIEWS} views each, "
+        f"{[round(x, 4) for x in seconds]} s per view (the first warms up), "
+        f"peak memory {peak:.2f} GiB [{card}]; "
         f"depth_est, confidence, cams and images checked")
 
 
@@ -2549,6 +2669,603 @@ def phase_mvs_train(root: Path, card, tmp: Path):
     log(f"mvs_train: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _mvs_write_run(root: Path, flags):
+    """cli/mvs write at the reference width with `flags`: (seconds per
+    sample, peak GiB, {dpath: the float depth handed to the PNG writer})."""
+    import numpy as np
+    import torch
+
+    import diner_tpu_torch.mvs.write_prediction as wp
+    from diner_tpu_torch.cli import mvs as mvs_cli
+
+    listfile = root / "splits" / "dtu_val_all.txt"
+    real = wp.write_depth_prediction
+    got = {}
+
+    def spy(depth, conf, dpath, scale=1.0):
+        got[str(dpath)] = np.array(depth)
+        return real(depth, conf, dpath, scale=scale)
+
+    wp.write_depth_prediction = spy
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        seconds = mvs_cli.main(["write", "--datapath", str(root),
+                                "--listfile", str(listfile), *flags])
+    finally:
+        wp.write_depth_prediction = real
+    torch.cuda.synchronize()
+    return seconds, torch.cuda.max_memory_allocated() / 2 ** 30, got
+
+
+def gc_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mvs_option_profiles(root: Path, listfile: Path, card):
+    """The device time by operator of one write sample and of one training
+    step at batch 1 (after a warm-up step), with the window DCN and with
+    bfloat16."""
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+    from diner_tpu_torch.data import collate
+    from diner_tpu_torch.mvs.datasets import DTUMVSDataset
+    from diner_tpu_torch.mvs.train import cascade_loss
+
+    dev = torch.device("cuda")
+    sample = DTUMVSDataset(root, listfile, mode="write_prediction")[0]
+    train = collate([DTUMVSDataset(root, root / "splits" /
+                                   "dtu_train_all.txt", mode="train")[0]])
+    for label, flags in (("window", ["--dcn-impl", "window"]),
+                         ("bf16", ["--compute-dtype", "bfloat16"])):
+        args = mvs_cli.parser().parse_args(
+            ["write", "--datapath", str(root), "--listfile", str(listfile),
+             *flags])
+        net = mvs_cli.build_net(args, dev)
+        _mvs_profile(net, mvs_cli.batch_of(sample, dev), card,
+                     f"mvs_options profile: write {label}, one sample")
+        net.train()
+
+        def step():
+            total, _ = cascade_loss(net, train, dev, (0.5, 1.0, 2.0))
+            total.backward()
+
+        step()
+        net.zero_grad(set_to_none=True)
+        _mvs_profile(net, None, card, f"mvs_options profile: train {label}, "
+                     f"one step at batch 1 (forward and backward)", step)
+        del net
+        gc_cuda()
+
+
+def _mvs_train_run(root: Path, tmp: Path, flags, batch: int, steps: int):
+    """cli/mvs train at the reference width with `flags` at `batch` for
+    `steps` steps: (records, peak GiB), or (None, peak GiB at the failure)
+    when the card runs out of memory, which is recorded, not hidden."""
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    logdir = tmp / f"opt_{'_'.join(f.strip('-') for f in flags)}_{batch}"
+    recs = None
+    try:
+        recs = mvs_cli.main(["train", "--datapath", str(root), "--listfile",
+                             str(root / "splits" / "dtu_train_all.txt"),
+                             "--logdir", str(logdir), "--batch-size",
+                             str(batch), "--max-steps", str(steps),
+                             "--log-every", str(steps), *flags])
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError:
+        pass
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc_cuda()
+    return recs, peak, logdir
+
+
+def phase_mvs_options(root: Path, card, tmp: Path):
+    """The cascade's options at the reference DTU width (512x640, ndepths
+    48/32/8 of 192, random weights from seed 0) on the DTU tree: write with
+    the gather DCN in float32 (phase mvs's priors, again), --dcn-impl
+    window and --compute-dtype bfloat16: s per sample and peak memory, and
+    the share of pixels whose depth agrees with the gather/float32 one
+    (window: within 1e-4 relative; bfloat16: within a tenth of stage 3's
+    hypothesis interval); train with each option at batch 1 and 2 for
+    MVS_OPTION_STEPS: s/step, peak memory, whether the batch fits (an
+    out-of-memory is recorded, not hidden) and, for window, the offset
+    audit's max |k + offset| on the trained weights. No kernel launches."""
+    import numpy as np
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+    from diner_tpu_torch.mvs.datasets import DTUMVSDataset
+    from diner_tpu_torch.mvs.net import WINDOW_LIMIT, window_offset_stats
+    from diner_tpu_torch.train import ckpt_io
+
+    t_phase = time.perf_counter()
+    _zero_launches()
+    runs = {}
+    for label, flags in (("gather/f32", []),
+                         ("window", ["--dcn-impl", "window"]),
+                         ("bf16", ["--compute-dtype", "bfloat16"])):
+        seconds, peak, depths = _mvs_write_run(root, flags)
+        check(len(seconds) == 4 and all(np.isfinite(d).all()
+                                        for d in depths.values()),
+              f"mvs_options write {label}: {len(seconds)} samples")
+        runs[label] = depths
+        log(f"mvs_options: write {label} at 512x640: "
+            f"{statistics.fmean(seconds[1:]):.4f} s per sample after the "
+            f"first ({[round(x, 4) for x in seconds]}), peak memory "
+            f"{peak:.2f} GiB [{card}]")
+    ref = runs["gather/f32"]
+    listfile = root / "splits" / "dtu_val_all.txt"
+    dv = DTUMVSDataset(root, listfile, mode="write_prediction")[0][
+        "depth_values"]
+    interval3 = float(dv[-1] - dv[0]) / len(dv) * 1.0    # stage 3, ratio 1
+    agree = {}
+    for label in ("window", "bf16"):
+        close = []
+        for path, d in ref.items():
+            diff = np.abs(runs[label][path] - d)
+            tol = (1e-4 * np.abs(d) if label == "window"
+                   else 0.1 * interval3)
+            close.append(diff <= tol)
+        agree[label] = float(np.mean(np.concatenate(
+            [c.reshape(-1) for c in close])))
+    log(f"mvs_options: depth agreeing with gather/f32's: window "
+        f"{agree['window']:.6f} of the pixels (within 1e-4 relative), "
+        f"bf16 {agree['bf16']:.6f} (within a tenth of stage 3's interval, "
+        f"{0.1 * interval3:.4f} mm)")
+    # the window DCN equals the gather form at these zero-init offsets, so
+    # only WTA near-ties part them; bfloat16 is a different rounding of a
+    # random-weight cascade whose probabilities are nearly flat: reported
+    check(agree["window"] >= 0.99, f"mvs_options: depth agreement {agree}")
+
+    fits = {}
+    for label, flags in (("window", ["--dcn-impl", "window"]),
+                         ("bf16", ["--compute-dtype", "bfloat16"])):
+        for batch in (1, 2):
+            recs, peak, logdir = _mvs_train_run(root, tmp, flags, batch,
+                                                MVS_OPTION_STEPS)
+            fits[(label, batch)] = recs is not None
+            if recs is None:
+                log(f"mvs_options: train {label} at batch {batch}: out of "
+                    f"memory at {peak:.2f} GiB allocated [{card}]")
+                continue
+            check(all(np.isfinite(r["loss"]) for r in recs),
+                  f"mvs_options train {label} batch {batch}: {recs}")
+            secs = [r["seconds"] for r in recs[1:]]
+            extra = ""
+            if label == "window":
+                args = mvs_cli.parser().parse_args(
+                    ["write", "--datapath", str(root), "--listfile",
+                     str(listfile), "--dcn-impl", "window", "--ckpt",
+                     str(logdir / "ckpts")])
+                net = mvs_cli.build_net(args, torch.device("cuda"))
+                max_disp, _ = window_offset_stats(
+                    net, *mvs_cli.batch_of(
+                        DTUMVSDataset(root, listfile,
+                                      mode="write_prediction")[0],
+                        torch.device("cuda")))
+                del net
+                check(ckpt_io.all_steps(logdir / "ckpts")
+                      == [MVS_OPTION_STEPS], "mvs_options: checkpoints")
+                extra = (f"; the audit on the trained weights: max |k + "
+                         f"offset| {max_disp:.4f} (exact below "
+                         f"{WINDOW_LIMIT:.3f})")
+            log(f"mvs_options: train {label} at batch {batch}: s/step after "
+                f"the first {statistics.median(secs):.4f} (median of "
+                f"{[round(x, 4) for x in secs]}), peak memory {peak:.2f} GiB"
+                f"{extra} [{card}]")
+            gc_cuda()
+    check(fits[("window", 1)] and fits[("bf16", 1)],
+          f"mvs_options: batch 1 must fit: {fits}")
+    log(f"mvs_options: batch 2 fits: window {fits[('window', 2)]}, bf16 "
+        f"{fits[('bf16', 2)]} (the gather DCN in float32 runs out of "
+        f"memory at batch 2)")
+    check(_launches() == _expect(), f"mvs_options launched {_launches()}")
+    log(f"mvs_options: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _mvs_rank_argv(root: Path, logdir: Path, batch: int, width):
+    return ["train", "--datapath", str(root), "--listfile",
+            str(root / "splits" / "dtu_train_all.txt"), "--logdir",
+            str(logdir), "--batch-size", str(batch), "--max-steps",
+            str(MVS_RANK_STEPS), "--log-every", "1", *width]
+
+
+def _mvs_cli_float64(argv):
+    """cli/mvs `argv` with the cascade in float64 (its softmax stays
+    float32, as the JAX package's does): (records, the net's final
+    state_dict on the CPU)."""
+    from diner_tpu_torch.cli import mvs as mvs_cli
+
+    held = {}
+    real = mvs_cli.build_net
+
+    def build_net(args, device):
+        held["net"] = real(args, device).double()
+        return held["net"]
+
+    mvs_cli.build_net = build_net
+    try:
+        with _Exact():
+            recs = mvs_cli.main(argv)
+    finally:
+        mvs_cli.build_net = real
+    return recs, {k: v.cpu() for k, v in held.pop("net").state_dict().items()}
+
+
+def mvs_rank_child(r: int, tmp: Path, coordinator: str, root: Path,
+                   plant: bool = False) -> int:
+    """Rank r of phase_mvs_ranks, in its own process on cuda:0 over gloo.
+    With `plant`, the ranks skip the gradient all-reduce: each steps on
+    its own rows' gradient (the fault the phase's gates must refuse)."""
+    import torch
+    import torch.distributed as dist
+
+    from diner_tpu_torch.parallel import init_multihost, mesh
+
+    if plant:
+        mesh.all_reduce_grads_ = lambda params: None
+    dev = init_multihost(coordinator, 2, r, device="cuda", backend="gloo")
+    torch.cuda.reset_peak_memory_stats()
+    recs, sd = _mvs_cli_float64(_mvs_rank_argv(
+        root, tmp / "ranks", 1, MVS_RANK_WIDTH) + ["--multihost"])
+    torch.save({"recs": recs, "peak": torch.cuda.max_memory_allocated(),
+                "sd": sd, "dev": str(dev)}, tmp / f"mvs_rank{r}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mvs_ranks(root: Path, card, tmp: Path, plant: bool = False):
+    """MVS training across ranks. Two gloo ranks share the card (child
+    processes of this script, `cli/mvs train --multihost` at batch 1 each)
+    against one process at batch 2, all exact (`_Exact`), the cascade in
+    float64 at MVS_RANK_WIDTH: its first stage alone, at a quarter of the
+    channels (two float64 ranks of the full width do not fit the card
+    beside each other). A random-weight cascade's probabilities are nearly
+    flat, and its softmax stays float32: rounding picks another WTA winner
+    at near-ties, which moves a later stage's hypotheses (and PixelwiseNet
+    routes its gradient through a max over depth), so no tolerance on the
+    full cascade's gradient survives two orders of sums (3e-2 of a tensor's
+    largest entry in float32 on the H100). MVS_RANK_STEPS steps, the second
+    at the warmup's first lr above 0; the gates: the losses within
+    MVS_RANK_LOSS_TOL relative; the global gradient, as Adam's first moment
+    holds it, within MVS_RANK_GRAD_TOL of each tensor's largest entry or of
+    a thousandth of the largest overall; the parameters after the second
+    step within a tenth of its lr of the reference's on at least
+    MVS_RANK_PARAM_SHARE of the entries (Adam moves each weight by about
+    lr times its gradient's sign, which rounding flips where a gradient is
+    nearly 0, such as a bias before a BatchNorm); the BatchNorm statistics
+    within 1e-7 + 1e-7 relative; the ranks bitwise equal. Every reading is
+    logged before the gates. `plant` runs the ranks without the gradient
+    all-reduce (`--mvs-ranks-probe`). Then, when sound, one NCCL rank with
+    the full cascade at the full width in float32 (torchrun's variables):
+    the gradient all-reduce's share of a step."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+    from diner_tpu_torch.train import ckpt_io
+
+    t_phase = time.perf_counter()
+    label = "planted" if plant else "sound"
+    tmp = tmp / f"mvs_ranks_{label}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    ref, ref_sd = _mvs_cli_float64(_mvs_rank_argv(root, tmp / "one", 2,
+                                                  MVS_RANK_WIDTH))
+    ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc_cuda()
+
+    coordinator = f"127.0.0.1:{_free_port()}"
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mvs-rank", str(r),
+         str(tmp), coordinator, str(root)] + (["--plant"] if plant else []),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=DDP_CHILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"mvs_ranks: rank {r} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    outs = [torch.load(tmp / f"mvs_rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    r0, r1 = outs
+    loss_rel = [_rel(a["loss"], b["loss"]) for a, b in zip(r0["recs"], ref)]
+    ranks_equal = all(torch.equal(v, r1["sd"][k])
+                      for k, v in r0["sd"].items())
+    # the steps' global gradient, as Adam's first moment holds it in rank
+    # 0's checkpoint and the reference's
+    ckpts = [ckpt_io.restore_latest(tmp / run / "ckpts")[0]
+             for run in ("ranks", "one")]
+    names = list(ref_sd)
+    # Adam holds state for the parameters that got a gradient (the later
+    # stages' heads get none), keyed by their index among the parameters
+    moments = [{i: st["exp_avg"] for i, st in c["optimizer"]["state"].items()}
+               for c in ckpts]
+    check(moments[0].keys() == moments[1].keys(),
+          "mvs_ranks: the ranks' Adam state covers other parameters")
+    params = [k for k in names if not k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))]
+    # each tensor against its own largest entry, or against a thousandth of
+    # the largest overall where its gradient nearly cancels (the DCN biases
+    # just before a BatchNorm, whose gradient is 0 in exact arithmetic; the
+    # attention projections' biases)
+    top = max(float(b.abs().max()) for b in moments[1].values())
+    grad_err = {i: float((moments[0][i] - b).abs().max()
+                         / max(float(b.abs().max()), 1e-3 * top))
+                for i, b in moments[1].items()}
+    worst = max(grad_err, key=grad_err.get)
+    for i in sorted(grad_err, key=grad_err.get)[-3:]:
+        log(f"mvs_ranks {label}: {params[i]}: gradient off by "
+            f"{grad_err[i]:.3e} of its scale; its largest entry "
+            f"{float(moments[1][i].abs().max()) / top:.3e} of the largest "
+            f"overall")
+    # the parameters after the last step, in units of its lr
+    lr = ref[-1]["lr"]
+    off = {k: (r0["sd"][k] - ref_sd[k]).abs() / lr for k in params}
+    within = {k: float((d <= 0.1).double().mean()) for k, d in off.items()}
+    n_within = sum(float((d <= 0.1).sum()) for d in off.values())
+    share = n_within / sum(d.numel() for d in off.values())
+    least = min(within, key=within.get)
+    stats_ok = all(torch.allclose(r0["sd"][k], ref_sd[k], atol=1e-7,
+                                  rtol=1e-7)
+                   for k in names if k.endswith(("running_mean",
+                                                 "running_var")))
+    log(f"mvs_ranks {label}: 2 gloo ranks sharing the card (batch 1 each, "
+        f"{' '.join(MVS_RANK_WIDTH)} at 512x640, float64) against one "
+        f"process at batch 2, exact, {MVS_RANK_STEPS} steps (lr "
+        f"{[r['lr'] for r in ref]}): {len(grad_err)} parameters with a "
+        f"gradient; losses within {max(loss_rel):.2e} relative; the global "
+        f"gradient (Adam's first moment) within {grad_err[worst]:.2e} of "
+        f"each tensor's largest entry (or 1e-3 of the largest overall) at "
+        f"worst ({params[worst]}); the parameters after the last step "
+        f"within a tenth of its lr on {share:.6f} of the entries (the "
+        f"least tensor {least} at {within[least]:.6f}, the largest "
+        f"difference {max(float(d.max()) for d in off.values()):.3f} lr); "
+        f"BatchNorm statistics within 1e-7 + 1e-7 relative: {stats_ok}; "
+        f"the ranks bitwise equal: {ranks_equal}")
+    log(f"mvs_ranks {label}: the reference's s/step "
+        f"{[round(r['seconds'], 4) for r in ref]}, peak {ref_peak:.2f} GiB; "
+        f"rank 0's {[round(r['seconds'], 4) for r in r0['recs']]}, peak "
+        f"{r0['peak'] / 2 ** 30:.2f} GiB, all-reduce "
+        f"{[round(r['allreduce_seconds'], 4) for r in r0['recs']]} s (two "
+        f"processes on one card over gloo: not a scaling number); both "
+        f"ranks done in {seconds:.1f} s with start-up [{card}]")
+    check(max(loss_rel) <= MVS_RANK_LOSS_TOL,
+          f"mvs_ranks: losses {r0['recs']} against batch 2's {ref}")
+    check(ranks_equal, "mvs_ranks: the ranks' weights differ")
+    check(lr > 0, f"mvs_ranks: the last step's lr is {lr}")
+    check(grad_err[worst] <= MVS_RANK_GRAD_TOL
+          and share >= MVS_RANK_PARAM_SHARE and stats_ok,
+          f"mvs_ranks: gradient {grad_err[worst]:.3e} off at "
+          f"{params[worst]}, parameters within a tenth of the lr on "
+          f"{share:.6f}, statistics {stats_ok}")
+
+    # one NCCL rank at the full width
+    gc_cuda()
+    env = _ddp_env(_free_port())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        recs = mvs_cli.main(["train", "--datapath", str(root), "--listfile",
+                             str(root / "splits" / "dtu_train_all.txt"),
+                             "--logdir", str(tmp / "nccl"), "--batch-size",
+                             "1", "--max-steps", str(MVS_NCCL_STEPS),
+                             "--log-every", str(MVS_NCCL_STEPS),
+                             "--multihost"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = recs[1:]
+    share = (sum(r["allreduce_seconds"] for r in steady)
+             / sum(r["seconds"] for r in steady))
+    check(all(np.isfinite(r["loss"]) for r in recs) and share < 0.02,
+          f"mvs_ranks nccl: {recs}")
+    log(f"mvs_ranks: one NCCL rank at the full width (batch 1): s/step "
+        f"{[round(r['seconds'], 4) for r in recs]}, the gradient "
+        f"all-reduce {[round(r['allreduce_seconds'] * 1e3, 3) for r in recs]}"
+        f" ms, {share:.4%} of a step after the first; peak {peak:.2f} GiB "
+        f"[{card}]")
+    check(_launches() == _expect(), f"mvs_ranks launched {_launches()}")
+    log(f"mvs_ranks: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_fuse(eval_root: Path, card):
+    """cli/mvs fuse with each method on the 5 views' eval outputs of phase
+    mvs (864x1152, random weights), at the CLI's thresholds and at
+    FUSE_LOOSE (random weights' confidences fall below the default 0.5):
+    points, s and peak memory per scan; the normal method's loose PLY
+    against the same fuse on the CPU (the counts within 1e-3 of each
+    other, for the pixels whose consistency test sits within rounding of a
+    threshold, and all but 1e-3 of the points matched within 1e-5 of the
+    cloud's extent in the same colour); then consensus fusion of a 49-view
+    DTU scan
+    at 512x640 (the sphere scene's depths from the DTU grid): s and peak
+    memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diner_tpu_torch.cli import mvs as mvs_cli
+    from diner_tpu_torch.fusion import consensus_fusion, read_ply
+
+    t_phase = time.perf_counter()
+    gc_cuda()
+    out = eval_root / "out"
+    plys = {}
+    for method in ("normal", "dynamic", "consensus"):
+        for label, flags in (("defaults", []), ("loose", FUSE_LOOSE)):
+            argv = ["fuse", "--datapath", str(eval_root), "--testlist",
+                    "scan1", "--outdir", str(out), "--method", method, *flags]
+            torch.cuda.reset_peak_memory_stats()
+            res = mvs_cli.main(argv)["scan1"]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ply = eval_root / f"{method}_{label}.ply"
+            shutil.copy(res["ply"], ply)
+            plys[method, label] = ply
+            check(Path(res["ply"]).name == "mvsnet001_l3.ply"
+                  and read_ply(ply)["points"].shape == (res["points"], 3),
+                  f"fuse {method} {label}: {res}")
+            log(f"fuse: {method} ({label}{' ' if flags else ''}"
+                f"{' '.join(flags)}) on {MVS_EVAL_VIEWS} views at "
+                f"{MVS_EVAL_HW[0]}x{MVS_EVAL_HW[1]}: {res['points']} points, "
+                f"{res['seconds']:.4f} s per scan (reads, fusion, PLY), peak "
+                f"{peak:.3f} GiB [{card}]")
+    cpu_out = eval_root / "out_cpu"
+    shutil.copytree(out, cpu_out)
+    mvs_cli.main(["fuse", "--datapath", str(eval_root), "--testlist",
+                  "scan1", "--outdir", str(cpu_out), "--method", "normal",
+                  *FUSE_LOOSE, "--device", "cpu"])
+    a = read_ply(plys["normal", "loose"])
+    b = read_ply(cpu_out / "mvsnet001_l3.ply")
+    # a pixel whose round trip to a source lands within float32 rounding of
+    # a threshold (1 px, 1% depth) may count that source on one device and
+    # not on the other: it is kept on one alone (5 of 1,520,528 on the
+    # H100), or kept on both with another fused depth (625 points without
+    # a match). Such pixels may be up to 1e-3 of the points. The scene is
+    # in mm, where one float32 ulp is 6e-5 at 700 mm: the devices' sums in
+    # other orders part the points by a few ulps, so the match is relative
+    from scipy.spatial import cKDTree
+
+    tol = 1e-5 * float(np.abs(b["points"]).max())
+    far, off_colour = 0, 0
+    for x, y in ((a, b), (b, a)):
+        dist, idx = cKDTree(y["points"]).query(x["points"])
+        far += int((dist > tol).sum())
+        off_colour += int((x["colors"] != y["colors"][idx]).any(-1).sum())
+    allowed = 1e-3 * len(b["points"])
+    log(f"fuse: normal (loose) on the card against the CPU: "
+        f"{len(a['points'])} and {len(b['points'])} points; points without "
+        f"a match within 1e-5 of the cloud's extent ({tol:.2e} mm) {far}, "
+        f"of another colour {off_colour}")
+    check(len(b["points"]) > 0
+          and abs(len(a["points"]) - len(b["points"])) <= allowed
+          and far <= allowed and off_colour <= allowed,
+          "fuse: the normal method's PLY differs from the CPU's")
+
+    K = np.array([[0.9 * 640, 0, 320], [0, 0.9 * 640, 256], [0, 0, 1]],
+                 np.float32)
+    exts = _dtu_grid()
+    views = _sphere_views(512, 640, DTU_SCENE_SCALE, exts, K)
+    depths = np.stack([d[..., 0] for _, _, d in views]).astype(np.float32)
+    colors = np.stack([rgb for rgb, _, _ in views]).astype(np.float32)
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = consensus_fusion(depths, np.stack([K] * len(exts)),
+                           np.stack(exts).astype(np.float32), colors=colors,
+                           device="cuda")
+    n = int(res["keep"].sum())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(n > 0 and torch.isfinite(res["points"][res["keep"]]).all(),
+          f"fuse: 49-view consensus kept {n} points")
+    log(f"fuse: consensus of a {len(exts)}-view DTU scan at 512x640 (the "
+        f"sphere scene): {n} points kept of {depths.size}, {secs:.3f} s, "
+        f"peak {peak:.2f} GiB [{card}]")
+    check(_launches() == _expect(), f"fuse launched {_launches()}")
+    log(f"fuse: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def mvs_option_profiles() -> int:
+    """`python3 chip_smoke.py --mvs-profiles`: the device time by operator
+    of one `write` sample and one training step (batch 1, after a warm-up
+    step) of the cascade at the reference DTU width with the window DCN
+    and with bfloat16, on this script's DTU tree with its GT depths. Apart
+    from the main run: torch.profiler takes minutes over the window's
+    half a million launches a step."""
+    card = phase_card()
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        root = Path(tmp) / "dtu"
+        write_dtu_tree(root, card)
+        write_dtu_gt_depths(root, card)
+        _mvs_option_profiles(root, root / "splits" / "dtu_val_all.txt",
+                             card)
+    return 0
+
+
+def mvs_ranks_probe() -> int:
+    """`python3 chip_smoke.py --mvs-ranks-probe`: phase mvs_options, then
+    phase mvs_ranks sound, which must pass, and with its planted fault (no
+    gradient all-reduce), which its gates must refuse; prints every
+    reading. Exits 0 when all come out so."""
+    import torch
+
+    card = phase_card()
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        root = Path(tmp) / "dtu"
+        write_dtu_tree(root, card)
+        write_dtu_gt_depths(root, card)
+        phase_mvs_options(root, card, Path(tmp))
+        phase_mvs_ranks(root, card, Path(tmp))
+        log("mvs ranks probe: the sound run passed")
+        try:
+            phase_mvs_ranks(root, card, Path(tmp), plant=True)
+        except SmokeFailure as e:
+            log(f"mvs ranks probe: the planted fault failed the gates: {e}"[
+                :2000])
+            log(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}))
+            return 0
+    log("mvs ranks probe: the planted fault PASSED the gates")
+    return 1
+
+
+def ddp_gate_probe() -> int:
+    """`python3 chip_smoke.py --ddp-gate-probe`: the ddp_two_ranks gate's own
+    check on the card. Runs the phase sound, which must pass, and with its
+    planted fault (the ranks' last step takes the encoder's gradient from
+    rank 0's rows alone), which the gate must refuse; prints both
+    readings. Exits 0 when both come out so."""
+    import torch
+
+    card = phase_card()
+    phase_build()
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    phase_ddp_two_ranks(card)
+    log("ddp gate probe: the sound run passed")
+    try:
+        phase_ddp_two_ranks(card, plant=True)
+    except SmokeFailure as e:
+        log(f"ddp gate probe: the planted fault failed the gate: {e}")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    log("ddp gate probe: the planted fault PASSED the gate")
+    return 1
+
+
 def main() -> int:
     try:
         import torch
@@ -2568,7 +3285,17 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--ddp-rank"]:   # a rank of phase_ddp_two_ranks
         return ddp_rank_child(int(sys.argv[2]), Path(sys.argv[3]),
-                              sys.argv[4])
+                              sys.argv[4], "--plant" in sys.argv[5:])
+    if sys.argv[1:2] == ["--mvs-rank"]:   # a rank of phase_mvs_ranks
+        return mvs_rank_child(int(sys.argv[2]), Path(sys.argv[3]),
+                              sys.argv[4], Path(sys.argv[5]),
+                              "--plant" in sys.argv[6:])
+    if sys.argv[1:2] == ["--ddp-gate-probe"]:
+        return ddp_gate_probe()
+    if sys.argv[1:2] == ["--mvs-profiles"]:
+        return mvs_option_profiles()
+    if sys.argv[1:2] == ["--mvs-ranks-probe"]:
+        return mvs_ranks_probe()
 
     t0 = time.perf_counter()
     try:
@@ -2600,8 +3327,11 @@ def main() -> int:
             phase_multiface_eval(card)
             phase_sweep(dtu_root, card)
             phase_dtu_train(dtu_root, card)
-            phase_mvs(dtu_root, card)
+            phase_mvs(dtu_root, card, work / "mvs_eval")
             phase_mvs_train(dtu_root, card, work)
+            phase_mvs_options(dtu_root, card, work)
+            phase_mvs_ranks(dtu_root, card, work)
+            phase_fuse(work / "mvs_eval", card)
         for k in kernels:
             k["launches"] = launches[k["name"]]
     except Exception:  # every phase failure ends the run without a result

@@ -4,7 +4,8 @@
   through the port's own PNG codec (image_ops/png.py), which decodes 16-bit
   grey exactly whatever imaging package is installed;
 - PFM depth maps (bottom-up rows);
-- MVSNet camera text files: extrinsics 4x4, intrinsics 3x3, depth bounds.
+- MVSNet camera text files: extrinsics 4x4, intrinsics 3x3, depth bounds;
+- Gipuma's .dmb maps and camera files, the fusibile inputs.
 """
 
 from __future__ import annotations
@@ -113,3 +114,48 @@ def nearest_resize(img, h, w):
     ys = (np.arange(h) * (img.shape[0] / h)).astype(np.int64)
     xs = (np.arange(w) * (img.shape[1] / w)).astype(np.int64)
     return img[ys][:, xs]
+
+
+def write_dmb(path, image):
+    """Write a Gipuma .dmb map (fusibile's input): an int32 header [type 1,
+    height, width, channels], then float32 data, column-major per
+    channel."""
+    import struct
+
+    image = np.asarray(image, np.float32)
+    if image.ndim == 2:
+        image = image[..., None]
+    h, w, c = image.shape
+    with open(path, "wb") as f:
+        f.write(struct.pack("<iiii", 1, h, w, c))
+        np.transpose(image, (2, 0, 1)).astype(np.float32).tofile(f)
+
+
+def read_dmb(path):
+    """Read a Gipuma .dmb map -> (H, W) or (H, W, C) float32."""
+    import struct
+
+    with open(path, "rb") as f:
+        _, h, w, c = struct.unpack("<iiii", f.read(16))
+        data = np.fromfile(f, np.float32)
+    arr = data.reshape((w, h, c), order="F")
+    return np.transpose(arr, (1, 0, 2)).squeeze()
+
+
+def fake_gipuma_normals(depth):
+    """Camera-facing unit normals (1, 1, 1)/sqrt(3) where depth > 0, zeros
+    elsewhere: (H, W, 3) float32."""
+    depth = np.asarray(depth)
+    n = np.ones((*depth.shape, 3), np.float32) / 1.732050808
+    return n * (depth > 0)[..., None]
+
+
+def write_gipuma_cam(path, extrinsics, intrinsics):
+    """Write fusibile's camera file: the 3x4 projection P = K @ [R|t]."""
+    K = np.asarray(intrinsics, np.float64)
+    ext = np.asarray(extrinsics, np.float64)
+    P = K @ ext[:3, :4]
+    with open(path, "w") as f:
+        for row in P:
+            f.write(" ".join(f"{v:.8f}" for v in row) + "\n")
+        f.write("\n")

@@ -27,14 +27,17 @@ def grid_sample(img, uv, mode: str = "bilinear",
                 padding_mode: str = "border"):
     """Sample img (..., H, W, C) at uv (..., N, 2) (x, y order, same leading
     dims). Modes: bilinear/border and nearest/border (the two the render path
-    uses). Returns (..., N, C)."""
+    uses), and bilinear/zeros (fusion's reprojection: corners outside the
+    image read 0). Returns (..., N, C)."""
     batch_shape = img.shape[:-3]
     H, W, C = img.shape[-3:]
     N = uv.shape[-2]
     flat = img.reshape(-1, H * W, C)
     uvs = uv.reshape(-1, N, 2)
-    if padding_mode != "border":
-        raise ValueError(f"unsupported padding_mode {padding_mode!r}")
+    zeros = padding_mode == "zeros"
+    if padding_mode != "border" and not (zeros and mode == "bilinear"):
+        raise ValueError(f"unsupported padding_mode {padding_mode!r} with "
+                         f"mode {mode!r}")
     ix = _unnormalize(uvs[..., 0], W)
     iy = _unnormalize(uvs[..., 1], H)
 
@@ -46,8 +49,9 @@ def grid_sample(img, uv, mode: str = "bilinear",
     if mode != "bilinear":
         raise ValueError(f"unknown mode {mode!r}")
 
-    ix = ix.clamp(0.0, W - 1.0)
-    iy = iy.clamp(0.0, H - 1.0)
+    if not zeros:
+        ix = ix.clamp(0.0, W - 1.0)
+        iy = iy.clamp(0.0, H - 1.0)
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
     wx = ix - x0
@@ -57,6 +61,9 @@ def grid_sample(img, uv, mode: str = "bilinear",
 
     def corner(yi, xi, w):
         vals = _gather_rows(flat, yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
+        if zeros:
+            ok = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+            w = w * ok.to(w.dtype)
         return vals * w[..., None]
 
     out = (corner(y0i, x0i, (1 - wx) * (1 - wy))

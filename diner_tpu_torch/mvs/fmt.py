@@ -8,16 +8,23 @@ reference layer's output. The stage-1 result reaches stages 2 and 3 through
 1x1 dim reduction, bilinear upsample-add and 3x3 smoothing. Submodule names
 are the reference's (FMT.layers.i.attention.*_projection, linear1/2,
 norm1/2, dim_reduction_1/2, smooth_1/2).
+
+With `dtype=torch.bfloat16` the projections and convs run in bfloat16 on
+float32 parameters cast at use, and the LayerNorms take their statistics in
+float32 and return bfloat16; the position encoding stays float32, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diner_tpu_torch.mvs.layers import conv_in, norm_in
 from diner_tpu_torch.nn.init import lecun_normal_
 
 # flax's LayerNorm default, which the JAX package's FMT uses
@@ -59,9 +66,11 @@ def _dense(cin: int, cout: int):
 
 
 class AttentionLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_heads = n_heads
+        self.dtype = dtype
         self.query_projection = _dense(d_model, d_model)
         self.key_projection = _dense(d_model, d_model)
         self.value_projection = _dense(d_model, d_model)
@@ -71,25 +80,31 @@ class AttentionLayer(nn.Module):
         N, L, _ = queries.shape
         S = keys.shape[1]
         H = self.n_heads
-        q = self.query_projection(queries).reshape(N, L, H, -1)
-        k = self.key_projection(keys).reshape(N, S, H, -1)
-        v = self.value_projection(values).reshape(N, S, H, -1)
-        return self.out_projection(linear_attention(q, k, v).reshape(N, L, -1))
+        dt = self.dtype
+        q = conv_in(self.query_projection, queries, dt).reshape(N, L, H, -1)
+        k = conv_in(self.key_projection, keys, dt).reshape(N, S, H, -1)
+        v = conv_in(self.value_projection, values, dt).reshape(N, S, H, -1)
+        return conv_in(self.out_projection,
+                       linear_attention(q, k, v).reshape(N, L, -1), dt)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.attention = AttentionLayer(d_model, n_heads)
+        self.dtype = dtype
+        self.attention = AttentionLayer(d_model, n_heads, dtype)
         self.linear1 = _dense(d_model, 2 * d_model)
         self.linear2 = _dense(2 * d_model, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, source):
-        x = self.norm1(x + self.attention(x, source, source))
-        y = self.linear2(torch.relu(self.linear1(x)))
-        return self.norm2(x + y)
+        dt = self.dtype
+        x = norm_in(self.norm1, x + self.attention(x, source, source), dt)
+        y = conv_in(self.linear2, torch.relu(conv_in(self.linear1, x, dt)),
+                    dt)
+        return norm_in(self.norm2, x + y, dt)
 
 
 def _tokens(x):
@@ -99,10 +114,11 @@ def _tokens(x):
 
 class FMT(nn.Module):
     def __init__(self, d_model: int = 32, n_heads: int = 8,
-                 layer_names=("self", "cross") * 4):
+                 layer_names=("self", "cross") * 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layer_names = tuple(layer_names)
-        self.layers = nn.ModuleList(EncoderLayer(d_model, n_heads)
+        self.layers = nn.ModuleList(EncoderLayer(d_model, n_heads, dtype)
                                     for _ in self.layer_names)
 
     def forward(self, ref_feature, src_feature=None, feat: str = "ref"):
@@ -138,10 +154,12 @@ def _conv(cin: int, cout: int, kernel: int):
 
 
 class FMTWithPathway(nn.Module):
-    def __init__(self, base_channels: int = 8):
+    def __init__(self, base_channels: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         b = base_channels
-        self.FMT = FMT(d_model=4 * b)
+        self.dtype = dtype
+        self.FMT = FMT(d_model=4 * b, dtype=dtype)
         self.dim_reduction_1 = _conv(4 * b, 2 * b, 1)
         self.dim_reduction_2 = _conv(2 * b, b, 1)
         self.smooth_1 = _conv(2 * b, 2 * b, 3)
@@ -157,6 +175,7 @@ class FMTWithPathway(nn.Module):
         view, the reference view first."""
         out = []
         ref_list = None
+        dt = self.dtype
         for i, f in enumerate(features):
             f = dict(f)
             if i == 0:
@@ -164,9 +183,11 @@ class FMTWithPathway(nn.Module):
                 f["stage1"] = ref_list[-1]
             else:
                 f["stage1"] = self.FMT(ref_list, f["stage1"], feat="src")
-            f["stage2"] = self.smooth_1(self._upsample_add(
-                self.dim_reduction_1(f["stage1"]), f["stage2"]))
-            f["stage3"] = self.smooth_2(self._upsample_add(
-                self.dim_reduction_2(f["stage2"]), f["stage3"]))
+            f["stage2"] = conv_in(self.smooth_1, self._upsample_add(
+                conv_in(self.dim_reduction_1, f["stage1"], dt),
+                f["stage2"]), dt)
+            f["stage3"] = conv_in(self.smooth_2, self._upsample_add(
+                conv_in(self.dim_reduction_2, f["stage2"], dt),
+                f["stage3"]), dt)
             out.append(f)
         return out

@@ -11,7 +11,7 @@ valid count carries + 1e-6.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -79,3 +79,16 @@ def mvs_loss_focal(outputs: Dict, depth_gt_ms: Dict, mask_ms: Dict,
     aux["less1"] = torch.where(mask, (scaled < 1.0).float(), zero).sum() / denom
     aux["less3"] = torch.where(mask, (scaled < 3.0).float(), zero).sum() / denom
     return total, aux
+
+
+def aux_mask_stage(name: str, stages: Sequence[str]) -> Optional[str]:
+    """The stage over whose masked pixels an aux value of `mvs_loss` or
+    `mvs_loss_focal` is a mean, taken over the whole batch (the depth
+    smooth-L1s, the end-point error and its shares), or None for the
+    entropies, which are means over the samples. `stages`: the mask
+    pyramid's keys."""
+    if name.endswith("_depth_l1"):
+        return name[:-len("_depth_l1")]
+    if name in ("depth_loss", "epe", "less1", "less3"):
+        return sorted(stages)[-1]
+    return None

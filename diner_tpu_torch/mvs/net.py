@@ -20,11 +20,18 @@ stage carry no gradient, as in JAX.
 The module tree carries the reference TransMVSNet's names (feature,
 FMT_with_pathway, cost_regularization.i, DepthNet.pixel_wise_net), so that
 its state dicts load by their own keys (mvs/checkpoint.py).
+
+Options, as in the JAX package: `compute_dtype="bfloat16"` runs the convs,
+DCN heads, FMT and cost volumes in bfloat16 on float32 parameters, with
+the geometry, the DCN offsets, softmax, the probability volume and WTA in
+float32 (`layers.conv_in`); `dcn_impl="window"` swaps the DCN heads to the
+gather-free stencil (`ops.deform_conv2d_window`), with the same
+parameters. `window_offset_stats` audits the stencil's exact domain.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -32,47 +39,58 @@ from torch import nn
 
 from diner_tpu_torch.mvs.feature_net import FeatureNet
 from diner_tpu_torch.mvs.fmt import FMTWithPathway
-from diner_tpu_torch.mvs.layers import Conv3dBnRelu, Deconv3dBnRelu
+from diner_tpu_torch.mvs.layers import (Conv3dBnRelu, DCNLayer,
+                                        Deconv3dBnRelu, conv_in, sigmoid)
 from diner_tpu_torch.mvs.ops import (depth_range_samples, depth_wta,
                                      homo_warping)
 from diner_tpu_torch.nn.init import lecun_normal_
 
 STAGE_SCALES = (4, 2, 1)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+# the window DCN is exact while every |k + offset| < its margin (2) - 1e-3
+WINDOW_LIMIT = 2.0 - 1e-3
 
 
 class PixelwiseNet(nn.Module):
     """1x1x1 3D convs + sigmoid + max over depth -> per-pixel view weight."""
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv0 = Conv3dBnRelu(1, 16, kernel=1)
-        self.conv1 = Conv3dBnRelu(16, 8, kernel=1)
+        self.dtype = dtype
+        self.conv0 = Conv3dBnRelu(1, 16, kernel=1, dtype=dtype)
+        self.conv1 = Conv3dBnRelu(16, 8, kernel=1, dtype=dtype)
         self.conv2 = nn.Conv3d(8, 1, 1)
         lecun_normal_(self.conv2.weight, 8)
         nn.init.zeros_(self.conv2.bias)
 
     def forward(self, x):
         """x: (B, 1, D, H, W) similarity -> (B, 1, H, W)."""
-        x = torch.sigmoid(self.conv2(self.conv1(self.conv0(x))))
-        return x.amax(dim=2)
+        x = conv_in(self.conv2, self.conv1(self.conv0(x)), self.dtype)
+        return sigmoid(x).amax(dim=2)
 
 
 class CostRegNet(nn.Module):
     """3D UNet over (D, H, W) cost volumes; D, H and W divisible by 8."""
 
-    def __init__(self, in_channels: int = 1, base_channels: int = 8):
+    def __init__(self, in_channels: int = 1, base_channels: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         b = base_channels
-        self.conv0 = Conv3dBnRelu(in_channels, b)
-        self.conv1 = Conv3dBnRelu(b, 2 * b, stride=2)
-        self.conv2 = Conv3dBnRelu(2 * b, 2 * b)
-        self.conv3 = Conv3dBnRelu(2 * b, 4 * b, stride=2)
-        self.conv4 = Conv3dBnRelu(4 * b, 4 * b)
-        self.conv5 = Conv3dBnRelu(4 * b, 8 * b, stride=2)
-        self.conv6 = Conv3dBnRelu(8 * b, 8 * b)
-        self.conv7 = Deconv3dBnRelu(8 * b, 4 * b)
-        self.conv9 = Deconv3dBnRelu(4 * b, 2 * b)
-        self.conv11 = Deconv3dBnRelu(2 * b, b)
+        self.dtype = dtype
+
+        def c3(cin, cout, stride=1):
+            return Conv3dBnRelu(cin, cout, stride=stride, dtype=dtype)
+
+        self.conv0 = c3(in_channels, b)
+        self.conv1 = c3(b, 2 * b, stride=2)
+        self.conv2 = c3(2 * b, 2 * b)
+        self.conv3 = c3(2 * b, 4 * b, stride=2)
+        self.conv4 = c3(4 * b, 4 * b)
+        self.conv5 = c3(4 * b, 8 * b, stride=2)
+        self.conv6 = c3(8 * b, 8 * b)
+        self.conv7 = Deconv3dBnRelu(8 * b, 4 * b, dtype)
+        self.conv9 = Deconv3dBnRelu(4 * b, 2 * b, dtype)
+        self.conv11 = Deconv3dBnRelu(2 * b, b, dtype)
         self.prob = nn.Conv3d(b, 1, 3, padding=1, bias=False)
         lecun_normal_(self.prob.weight, b * 27)
 
@@ -84,7 +102,7 @@ class CostRegNet(nn.Module):
         y = c4 + self.conv7(y)
         y = c2 + self.conv9(y)
         y = c0 + self.conv11(y)
-        return self.prob(y)
+        return conv_in(self.prob, y, self.dtype)
 
 
 def _fuse(proj):
@@ -98,9 +116,9 @@ def _fuse(proj):
 class DepthNet(nn.Module):
     """One stage's cost volume, view weighting and depth regression."""
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.pixel_wise_net = PixelwiseNet()
+        self.pixel_wise_net = PixelwiseNet(dtype)
 
     def forward(self, features, proj_mats, depth_values, cost_reg,
                 view_weights=None):
@@ -142,15 +160,24 @@ class TransMVSNet(nn.Module):
     def __init__(self, ndepths: Sequence[int] = (48, 32, 8),
                  depth_intervals_ratio: Sequence[float] = (4, 2, 1),
                  cr_base_chs: Sequence[int] = (8, 8, 8),
-                 base_channels: int = 8):
+                 base_channels: int = 8, compute_dtype: str = "float32",
+                 dcn_impl: str = "gather"):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{sorted(COMPUTE_DTYPES)}, "
+                             f"got {compute_dtype!r}")
+        dt = COMPUTE_DTYPES[compute_dtype]
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
-        self.feature = FeatureNet(base_channels)
-        self.FMT_with_pathway = FMTWithPathway(base_channels)
+        self.compute_dtype = compute_dtype
+        self.dcn_impl = dcn_impl
+        self.feature = FeatureNet(base_channels, dtype=dt, dcn_impl=dcn_impl)
+        self.FMT_with_pathway = FMTWithPathway(base_channels, dtype=dt)
         self.cost_regularization = nn.ModuleList(
-            CostRegNet(1, cr_base_chs[i]) for i in range(len(self.ndepths)))
-        self.DepthNet = DepthNet()
+            CostRegNet(1, cr_base_chs[i], dtype=dt)
+            for i in range(len(self.ndepths)))
+        self.DepthNet = DepthNet(dt)
 
     def forward(self, imgs, proj_matrices, depth_values):
         """imgs: (B, V, 3, H, W); proj_matrices: {"stage1".."stage3":
@@ -197,3 +224,29 @@ class TransMVSNet(nn.Module):
         outputs["photometric_confidence"] = \
             outputs[f"stage{len(self.ndepths)}"]["photometric_confidence"]
         return outputs
+
+
+def window_offset_stats(net: TransMVSNet, imgs, proj_matrices, depth_values):
+    """Audit the window DCN's exact domain on a batch: one forward of the
+    net as it stands (eval mode for inference), returning (max_disp,
+    per_layer), the largest |k + offset| over every DCN layer and a
+    {layer name: largest} dict. The forward runs in eval mode (BatchNorm
+    on its running statistics, which it leaves as they are).
+    `ops.deform_conv2d_window` equals the gather form while max_disp <
+    WINDOW_LIMIT; beyond it taps clamp to the window's edge and lose their
+    offset gradient. Works with either implementation."""
+    layers = {n: m for n, m in net.named_modules() if isinstance(m, DCNLayer)}
+    for m in layers.values():
+        m.record_disp = True
+    training = net.training
+    net.eval()
+    try:
+        with torch.no_grad():
+            net(imgs, proj_matrices, depth_values)
+        per_layer = {n: float(m.window_disp_max) for n, m in layers.items()}
+    finally:
+        net.train(training)
+        for m in layers.values():
+            m.record_disp = False
+            m.window_disp_max = None
+    return max(per_layer.values()), per_layer

@@ -47,44 +47,163 @@ def _corner_weights(wx, wy):
                         (1 - wx) * wy, wx * wy], dim=-1)
 
 
+def _blend_in_order(rows, wx, wy):
+    p00, p01, p10, p11 = rows.unbind(1)
+    return (p00 * (1 - wx) * (1 - wy) + p01 * wx * (1 - wy)
+            + p10 * (1 - wx) * wy + p11 * wx * wy)
+
+
+class _Blend(torch.autograd.Function):
+    """Quad rows (M, 4, C) and in-cell weights (M, 1) -> the bilinear
+    samples (M, C), in the JAX package's order of operations, so that a
+    bfloat16 call rounds each product where it does. The backward pass
+    works from the rows and weights alone, so no product is kept for it."""
+
+    @staticmethod
+    def forward(ctx, rows, wx, wy):
+        ctx.save_for_backward(rows, wx, wy)
+        return _blend_in_order(rows, wx, wy)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, wx, wy = ctx.saved_tensors
+        need_rows, need_wx, need_wy = ctx.needs_input_grad
+        g_rows = g_wx = g_wy = None
+        if need_rows:
+            cw = _corner_weights(wx[:, 0], wy[:, 0])
+            g_rows = g[:, None] * cw[..., None]
+        p00, p01, p10, p11 = rows.unbind(1)
+        if need_wx:
+            g_wx = (g * ((p01 - p00) * (1 - wy) + (p11 - p10) * wy)).sum(
+                1, keepdim=True)
+        if need_wy:
+            g_wy = (g * ((p10 - p00) * (1 - wx) + (p11 - p01) * wx)).sum(
+                1, keepdim=True)
+        return g_rows, g_wx, g_wy
+
+
+_blend = _Blend.apply
+
+
 def deform_conv2d(x, offset, mask, weight, bias=None):
     """Modulated deformable convolution (DCNv2): stride 1, "same" padding,
     square kernel, zeros outside the image.
 
     x: (N, C, H, W); offset: (N, 2*K*K, H, W), (dy, dx) of tap k at
     channels 2k and 2k+1 (taps row-major); mask: (N, K*K, H, W); weight:
-    (O, C, K, K); bias: (O,). Returns (N, O, H, W) in float32.
+    (O, C, K, K); bias: (O,). Returns (N, O, H, W) in x's dtype.
 
     The taps are gathered one at a time and each one's product with its
     weight slice is added to the output, so that only one tap's rows are
     live at once. A tap's four corners, scaled by their bilinear weights
     and the mask, go through one matmul with the weight slice repeated four
-    times, which sums them.
+    times, which sums them. The sample positions stay float32 in a
+    bfloat16 call, whose corners are blended in the JAX package's order
+    (`_blend`), each product rounded to bfloat16, scaled by the mask and
+    multiplied by the weight slice in float32, as its einsum does; the taps
+    accumulate in float32.
     """
     N, C, H, W = x.shape
     O, _, K, _ = weight.shape
     pad = (K - 1) // 2
     dev = x.device
+    dt = x.dtype
     gy, gx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
                             torch.arange(W, dtype=torch.float32, device=dev),
                             indexing="ij")
     gy = gy.reshape(1, H * W)
     gx = gx.reshape(1, H * W)
     off = offset.float().reshape(N, K * K, 2, H * W)
-    m = mask.reshape(N, K * K, H * W)
+    m = mask.to(dt).reshape(N, K * K, H * W)
     xq = _padded_quad(x)
-    w = weight.reshape(O, C, K * K)
+    w = weight.to(dt).reshape(O, C, K * K)
     out = torch.zeros(N * H * W, O, dtype=torch.float32, device=dev)
     for t in range(K * K):
         ky, kx = t // K - pad, t % K - pad
         idx, wx, wy = _cells(gy + ky + off[:, t, 0], gx + kx + off[:, t, 1],
                              H, W)
-        wq = _corner_weights(wx, wy) * m[:, t].reshape(-1, 1)
-        rows = xq.index_select(0, idx).reshape(-1, 4, C) * wq[..., None]
-        out = out + rows.reshape(-1, 4 * C) @ w[:, :, t].t().repeat(4, 1)
-    out = out.reshape(N, H, W, O).permute(0, 3, 1, 2)
+        wx, wy, m_t = wx.to(dt), wy.to(dt), m[:, t].reshape(-1, 1)
+        rows = xq.index_select(0, idx).reshape(-1, 4, C)
+        if dt == torch.bfloat16:
+            s = _blend(rows, wx[:, None], wy[:, None]) * m_t
+            out = out + s.float() @ w[:, :, t].t().float()
+        else:
+            rows = rows * (_corner_weights(wx, wy) * m_t)[..., None]
+            out = out + (rows.reshape(-1, 4 * C)
+                         @ w[:, :, t].t().repeat(4, 1)).float()
+    out = out.reshape(N, H, W, O).permute(0, 3, 1, 2).to(dt)
     if bias is not None:
-        out = out + bias[:, None, None]
+        out = out + bias.to(dt)[:, None, None]
+    return out
+
+
+def deform_conv2d_window(x, offset, mask, weight, bias=None,
+                         margin: int = 2):
+    """Gather-free modulated deformable convolution: a data-weighted
+    stencil over statically shifted maps. Same arguments as
+    `deform_conv2d`; returns (N, O, H, W) in x's dtype.
+
+    Each tap's displacement k + offset is clipped to [-R, R - 1e-3] about
+    its pixel (R = margin), and its bilinear sample is rebuilt from the
+    (2R + 1)^2 static shifts of the zero-padded map. The mask and the
+    kernel commute with the blend, so Z_t = x @ W_t is computed once per
+    tap and the shifts weight Z_t, accumulated in float32:
+
+        out[p] = sum_t sum_s m_t(p) w_{t,s}(p) Z_t[p + s].
+
+    It equals `deform_conv2d` while every |k + offset| < R - 1e-3 (for a
+    3x3 kernel, |offset| < 1 px); a tap beyond the window is clamped to
+    its edge, and its offset gets no gradient there.
+    """
+    N, C, H, W = x.shape
+    O, _, K, _ = weight.shape
+    taps = K * K
+    pad = (K - 1) // 2
+    R = int(margin)
+    dt = x.dtype
+    dev = x.device
+    k = torch.arange(taps, device=dev)
+    ky = (k // K - pad).float().reshape(1, taps, 1, 1)
+    kx = (k % K - pad).float().reshape(1, taps, 1, 1)
+    off = offset.float().reshape(N, taps, 2, H, W)
+    dy = (ky + off[:, :, 0]).clamp(-float(R), R - 1e-3)
+    dx = (kx + off[:, :, 1]).clamp(-float(R), R - 1e-3)
+    c0y = torch.floor(dy)
+    c0x = torch.floor(dx)
+    fy = (dy - c0y).to(dt)
+    fx = (dx - c0x).to(dt)
+    m = mask.to(dt)
+    w = weight.to(dt).reshape(O, C, taps)
+    out = torch.zeros(N, O, H, W, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    shifts = range(-R, R + 1)
+
+    def axis_weights(c0, f):
+        # the bilinear weight of each shift along one axis
+        g = 1 - f
+        return [torch.where(c0 == s, g, zero) + torch.where(c0 == s - 1, f,
+                                                             zero)
+                for s in shifts]
+
+    for t in range(taps):
+        z = torch.einsum("nchw,oc->nohw", x, w[:, :, t])
+        zp = F.pad(z, (R, R + 1, R, R + 1))
+        wy = axis_weights(c0y[:, t], fy[:, t])
+        wx = axis_weights(c0x[:, t], fx[:, t])
+        m_t = m[:, t]
+        for i, a in enumerate(shifts):
+            for j, b in enumerate(shifts):
+                # the JAX package's order of products (wy * wx * m), where
+                # a bfloat16 call rounds; float32 accumulates in one pass
+                wgt = (wy[i] * wx[j] * m_t)[:, None]
+                zs = zp[:, :, R + a:R + a + H, R + b:R + b + W]
+                if dt == torch.float32:
+                    out.addcmul_(wgt, zs)
+                else:
+                    out += (wgt * zs).float()
+    out = out.to(dt)
+    if bias is not None:
+        out = out + bias.to(dt)[:, None, None]
     return out
 
 
@@ -93,7 +212,9 @@ def homo_warping(src_fea, src_proj, ref_proj, depth_values):
 
     src_fea: (B, C, H, W); src_proj, ref_proj: (B, 4, 4), intrinsics
     premultiplied into [R|t]; depth_values: (B, D, H, W) or (B, D).
-    Returns (B, C, D, H, W). Samples with z < 1e-6 read zeros.
+    Returns (B, C, D, H, W) in src_fea's dtype (the geometry in
+    float32; a bfloat16 call blends as `deform_conv2d` does). Samples with
+    z < 1e-6 read zeros.
     """
     B, C, H, W = src_fea.shape
     D = depth_values.shape[1]
@@ -116,7 +237,12 @@ def homo_warping(src_fea, src_proj, ref_proj, depth_values):
     py = torch.where(invalid, -99.0, pts[:, 1] / z)
     idx, wx, wy = _cells(py.reshape(B, -1), px.reshape(B, -1), H, W)
     rows = _padded_quad(src_fea).index_select(0, idx).reshape(-1, 4, C)
-    warped = (rows * _corner_weights(wx, wy)[..., None]).sum(dim=1)
+    dt = src_fea.dtype
+    wx, wy = wx.to(dt), wy.to(dt)
+    if dt == torch.bfloat16:
+        warped = _blend(rows, wx[:, None], wy[:, None])
+    else:
+        warped = (rows * _corner_weights(wx, wy)[..., None]).sum(dim=1)
     return warped.reshape(B, D, H, W, C).permute(0, 4, 1, 2, 3)
 
 

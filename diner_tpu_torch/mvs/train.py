@@ -1,5 +1,5 @@
 """Training of the MVS cascade (port of the train and finetune modes of
-diner_tpu.cli.mvs), on one device.
+diner_tpu.cli.mvs), on one device or data-parallel across ranks.
 
 Adam with optax's defaults over the net's parameters, its learning rate
 from `warmup_multistep` at the count of updates already applied (so the
@@ -16,6 +16,19 @@ state_dict (weights and BatchNorm statistics), "optimizer": Adam's
 state_dict, "step"}. "model" is the reference checkpoints' key, so `write
 --ckpt`, `eval --ckpt` and --torch-ckpt all load them. A resume adopts the
 optimizer state only when its layout matches the net's parameters.
+
+Across ranks (a torch.distributed process group, `cli/mvs train
+--multihost`), `batch_size` is each rank's: a step's global batch is the
+batch_size * world_size indices one process would draw at that size, and
+rank r trains on rows [r * batch_size, (r + 1) * batch_size) of it. The
+loss is a mean over samples, so the mean of the ranks' gradients
+(`parallel.all_reduce_grads_`) is the global batch's, and BatchNorm
+normalizes over the global batch (`nn/resnet.py`'s synced statistics, 2D
+and 3D), as the JAX package's mesh does. The logged loss and aux values
+are the global batch's (`global_values`), and `cli/mvs.py` counts the
+learning rate's milestones in steps of the global batch. Rank 0's weights
+are broadcast at the start; rank 0 alone writes checkpoints and prints,
+and every rank waits for its saves.
 """
 
 from __future__ import annotations
@@ -28,7 +41,9 @@ import numpy as np
 import torch
 
 from diner_tpu_torch.data.contract import collate
-from diner_tpu_torch.mvs.losses import mvs_loss, mvs_loss_focal
+from diner_tpu_torch.mvs.losses import (aux_mask_stage, mvs_loss,
+                                        mvs_loss_focal)
+from diner_tpu_torch.parallel import mesh
 from diner_tpu_torch.train import ckpt_io
 
 
@@ -55,40 +70,68 @@ def batch_indices(step: int, batch_size: int, n: int, seed: int):
     return np.take(order, np.arange(start, start + batch_size), mode="wrap")
 
 
-def _t(x, device):
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+def _t(x, device, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        device, dtype)
 
 
-def to_tensors(batch: Dict, device):
+def to_tensors(batch: Dict, device, dtype=torch.float32):
     """A collated batch -> the cascade's inputs (imgs (B, V, 3, H, W),
-    proj_matrices, depth_values (B, D)) on `device`."""
-    imgs = _t(batch["imgs"], device).permute(0, 1, 4, 2, 3).contiguous()
-    projs = {k: _t(v, device) for k, v in batch["proj_matrices"].items()}
-    return imgs, projs, _t(batch["depth_values"], device)
+    proj_matrices, depth_values (B, D)) on `device`, in `dtype`."""
+    imgs = _t(batch["imgs"], device, dtype).permute(0, 1, 4, 2, 3
+                                                    ).contiguous()
+    projs = {k: _t(v, device, dtype)
+             for k, v in batch["proj_matrices"].items()}
+    return imgs, projs, _t(batch["depth_values"], device, dtype)
 
 
-def gt_tensors(batch: Dict, device):
+def gt_tensors(batch: Dict, device, dtype=torch.float32):
     """A collated training batch -> its depth and mask pyramids on
-    `device`."""
-    return ({k: _t(v, device) for k, v in batch["depth"].items()},
-            {k: _t(v, device) for k, v in batch["mask"].items()})
+    `device`, in `dtype`."""
+    return ({k: _t(v, device, dtype) for k, v in batch["depth"].items()},
+            {k: _t(v, device, dtype) for k, v in batch["mask"].items()})
 
 
 def cascade_loss(net, batch: Dict, device, dlossw: Sequence[float],
                  focal: bool = False):
-    """(total, aux) of the net on a collated batch. The focal loss takes
-    the batch's depth_interval, or the hypotheses' spacing without one."""
-    imgs, projs, dvals = to_tensors(batch, device)
-    depth, mask = gt_tensors(batch, device)
+    """(total, aux) of the net on a collated batch, its inputs in the
+    net's parameter dtype. The focal loss takes the batch's
+    depth_interval, or the hypotheses' spacing without one."""
+    dtype = next(net.parameters()).dtype
+    imgs, projs, dvals = to_tensors(batch, device, dtype)
+    depth, mask = gt_tensors(batch, device, dtype)
     out = net(imgs, projs, dvals)
     if not focal:
         return mvs_loss(out, depth, mask, dlossw=dlossw)
     if "depth_interval" in batch:
-        dint = _t(batch["depth_interval"], device)
+        dint = _t(batch["depth_interval"], device, dtype)
     else:
         dint = dvals[:, 1] - dvals[:, 0]
     return mvs_loss_focal(out, depth, mask, dint[:, None, None],
                           dlossw=dlossw)
+
+
+def global_values(total, aux: Dict, mask_ms: Dict, device) -> Dict:
+    """A step's loss and aux values over the global batch, as python
+    floats. The loss and the entropies are means over the samples, so the
+    global value is the ranks' mean; a masked mean over the batch's pixels
+    (`losses.aux_mask_stage`) is rebuilt from each rank's sum and count of
+    masked pixels, with the loss's + 1e-6 in its denominator. One float64
+    all-reduce; without a process group the values as they are."""
+    names = ["loss"] + list(aux)
+    vals = torch.stack([total.detach().double()]
+                       + [aux[k].detach().double() for k in aux])
+    counts, eps = [], []
+    for k in names:
+        stage = aux_mask_stage(k, list(mask_ms)) if k != "loss" else None
+        counts.append(1.0 if stage is None
+                      else float((mask_ms[stage] > 0.5).sum()))
+        eps.append(0.0 if stage is None else 1e-6)
+    counts = torch.tensor(counts, dtype=torch.float64, device=device)
+    eps = torch.tensor(eps, dtype=torch.float64, device=device)
+    packed = mesh.all_reduce_sum_(torch.cat([vals * (counts + eps), counts]))
+    n = len(names)
+    return dict(zip(names, (packed[:n] / (packed[n:] + eps)).tolist()))
 
 
 def adam_count(optimizer) -> int:
@@ -141,11 +184,17 @@ def train(net, dataset, logdir, device, lr: float = 1e-3,
           focal: bool = False) -> List[Dict]:
     """Train `net` (on `device`) from `dataset` for steps [start,
     max_steps), start being 0 or, with resume, the latest checkpoint's
-    step. Returns one record per step run: {"step", "loss", the aux
-    losses, "seconds" (the step's wall time, synchronized)}."""
+    step. Returns one record per step run: {"step", "lr" (the update's),
+    "loss" and the aux losses (over the global batch: `global_values`),
+    "seconds" (the step's wall time, synchronized)} and, in a process
+    group, "allreduce_seconds" (the gradient all-reduce's,
+    synchronized)."""
     logdir = Path(logdir)
     ckpt_dir = logdir / "ckpts"
-    logdir.mkdir(parents=True, exist_ok=True)
+    main = mesh.is_main()
+    rank, world = mesh.rank(), mesh.world_size()
+    if main:
+        logdir.mkdir(parents=True, exist_ok=True)
     net.to(device).train()
     optimizer = make_optimizer(net, lr)
     schedule = warmup_multistep(lr, milestones=milestones, gamma=gamma)
@@ -155,36 +204,53 @@ def train(net, dataset, logdir, device, lr: float = 1e-3,
         if restored is not None:
             net.load_state_dict(restored["model"])
             ckpt_io.adopt_opt_state(restored, optimizer)
-            print(f"resumed from step {start}", flush=True)
+            if main:
+                print(f"resumed from step {start}", flush=True)
+    mesh.broadcast_module_(net)
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
             else (lambda: None))
+
+    def save(step):
+        if main:
+            save_checkpoint(ckpt_dir, net, optimizer, step)
+        mesh.barrier(device)
+
     records, prof = [], None
     for it in range(start, max_steps):
-        if profile and it == 5:
+        if profile and main and it == 5:
             prof = _profile_start()
         elif prof is not None and it == 10:
             _profile_stop(prof, logdir / "trace", 5)
             prof = None
         t = time.perf_counter()
+        rows = batch_indices(it, batch_size * world, len(dataset), seed)
         batch = collate([dataset[int(i)] for i in
-                         batch_indices(it, batch_size, len(dataset), seed)])
+                         rows[rank * batch_size:(rank + 1) * batch_size]])
         optimizer.zero_grad(set_to_none=True)
         total, aux = cascade_loss(net, batch, device, dlossw, focal)
         total.backward()
+        rec = {"step": it}
+        if torch.distributed.is_initialized():
+            sync()
+            t_ar = time.perf_counter()
+            mesh.all_reduce_grads_(net.parameters())
+            sync()
+            rec["allreduce_seconds"] = time.perf_counter() - t_ar
+        rec["lr"] = schedule(adam_count(optimizer))
         for group in optimizer.param_groups:
-            group["lr"] = schedule(adam_count(optimizer))
+            group["lr"] = rec["lr"]
         optimizer.step()
-        rec = {"step": it, "loss": total.item()}
-        rec.update({k: float(v.detach()) for k, v in aux.items()})
+        rec.update(global_values(total, aux, batch["mask"], device))
         sync()
         rec["seconds"] = time.perf_counter() - t
         records.append(rec)
-        if it % log_every == 0:
+        if main and it % log_every == 0:
             print(f"step {it}: loss {rec['loss']:.4f}", flush=True)
         if save_every and (it + 1) % save_every == 0:
-            save_checkpoint(ckpt_dir, net, optimizer, it + 1)
+            save(it + 1)
     if prof is not None:
         _profile_stop(prof, logdir / "trace", max_steps - 5)
-    save_checkpoint(ckpt_dir, net, optimizer, max_steps)
-    print("done ->", logdir, flush=True)
+    save(max_steps)
+    if main:
+        print("done ->", logdir, flush=True)
     return records

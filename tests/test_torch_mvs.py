@@ -694,9 +694,11 @@ def test_cli_eval_matches_jax(cascade, trees, tmp_path):
 
 
 def test_cli_runs_on_cuda_unless_told_otherwise(trees, monkeypatch, tmp_path):
-    """Both subcommands default to the CUDA device and raise without one;
-    the flags left out of the port are refused, not ignored; --ckpt with
-    no checkpoint raises; train needs its data and log flags."""
+    """Every subcommand defaults to the CUDA device and raises without
+    one, with each of the options --compute-dtype, --dcn-impl and
+    --data-parallel too (train with --multihost, fuse); a flag the port
+    lacks is refused, not ignored; --ckpt with no checkpoint raises; train
+    needs its data and log flags."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     root, listfile = trees["dtu"]
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -707,9 +709,25 @@ def test_cli_runs_on_cuda_unless_told_otherwise(trees, monkeypatch, tmp_path):
                       "scan9", "--outdir", str(tmp_path)] + CLI_ARCH)
     for flag in (["--compute-dtype", "bfloat16"], ["--dcn-impl", "window"],
                  ["--data-parallel"]):
-        with pytest.raises(SystemExit):
+        with pytest.raises(RuntimeError, match="CUDA"):
             mvs_cli.main(["write", "--datapath", str(root), "--listfile",
-                          str(listfile), "--device", "cpu"] + flag)
+                          str(listfile)] + CLI_ARCH + flag)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mvs_cli.main(["eval", "--datapath", str(trees["eval"]),
+                          "--testlist", "scan9", "--outdir", str(tmp_path)]
+                         + CLI_ARCH + flag)
+    for flag in (["--compute-dtype", "bfloat16"], ["--dcn-impl", "window"],
+                 ["--multihost"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mvs_cli.main(["train", "--datapath", str(root), "--listfile",
+                          str(listfile), "--logdir", str(tmp_path / "run")]
+                         + CLI_ARCH + flag)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mvs_cli.main(["fuse", "--datapath", str(trees["eval"]), "--testlist",
+                      "scan9", "--outdir", str(tmp_path)])
+    with pytest.raises(SystemExit):
+        mvs_cli.main(["write", "--datapath", str(root), "--listfile",
+                      str(listfile), "--device", "cpu", "--shard-rays"])
     with pytest.raises(FileNotFoundError):
         mvs_cli.main(["write", "--datapath", str(root), "--listfile",
                       str(listfile), "--device", "cpu", "--ckpt",
