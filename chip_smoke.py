@@ -45,15 +45,34 @@ last line:
      each and K1 never;
   8. the FaceScape fast preset (group norm, white background) serves 2
      requests at 256x256: K1, K2 and K4 16 times each;
+  8b. render_options: the fast DTU preset at full width (int8 quad latent
+     included) with each latent-fetch variant set in its YAML
+     (latent_anchors 8, latent_sample_stride 2, latent_unique_cells 12)
+     through from_preset: a warm-up and 2 requests each, K1, K2 and K4 20
+     times a request and K3 never, finite rgb; s a request and each
+     frame's PSNR against the plain fast render of the same seed;
+  8c. pipelined: the fast preset's frame through render_image(split=
+     (field_gather, field_mlp)), chunk i+1's sampler and gather on a
+     second CUDA stream, against render_image at the same seed: rgb and
+     depth within 1e-6, the same launches; s a frame of both and each
+     one's device-busy share under torch.profiler;
+  8d. sharded: render_image_sharded over ["cuda:0", "cuda:0"] against
+     render_image of each shard's rays with that shard's noise: within
+     1e-6, 20 launches of K1, K2 and K4 a frame; s a frame;
   9. quality: the trained fixture tests/fixtures/fastpath_tiny.npz, loaded
      with from_jax, renders its held-out scene on the card on the exact f32,
-     the fast and the fast chord-route paths (TF32 off), over 16 noise
-     draws: mean exact PSNR-vs-GT > 20 dB, |mean fast - mean exact| <= 0.1
-     dB on each fast path, and each path's first render agrees with the
-     same render on the CPU;
+     the fast and the fast chord-route paths and the fast path with each
+     latent-fetch variant of 8b (TF32 off), over 16 noise draws: mean
+     exact PSNR-vs-GT > 20 dB, |mean fast - mean exact| <= 0.1 dB on each
+     fast path (the variants' deltas are printed, not gated: none is
+     certified), and each path's first render agrees with the same render
+     on the CPU;
   10. bulk eval: the random fast-DTU model goes through to_lightning and
      torch.save, and cli/render_eval renders and scores two synthetic 4-view
-     256x320 scenes from that checkpoint: 8 PNGs, finite scores;
+     256x320 scenes from that checkpoint: 8 PNGs, finite scores; then
+     render_eval --shard-rays on one of them must say that it renders
+     unsharded on one device (one card), launch K1, K2 and K4 20 times and
+     give finite scores;
   10b. training at full width: cli/train on configs/train_dtu.yaml's nerf,
      renderer and optimizer sections (ResNet34 + group norm, ResnetFC
      512x5 f32, 40 samples from 1000 candidates, VGG 0.1 and antibias 1.0
@@ -178,8 +197,9 @@ last line:
      49-view DTU scan at 512x640 (the sphere scene): s and peak memory.
      The MVS phases launch none of K1-K4;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
-     route (phase 7; K4's backward: phase 10b; both K4's add the ddp
-     phases'), error and times (K4's entry also the empty launch's);
+     route (phase 7; K1, K2 and K4 add phases 8b-8d's; K4's backward:
+     phase 10b; both K4's add the ddp phases'), error and times (K4's entry
+     also the empty launch's);
   12. the last line {"ok": true, "device": {...}}.
 Exits nonzero, printing no result, when no CUDA device is present.
 """
@@ -226,6 +246,12 @@ N_REQUESTS = 3           # on the v1 route; the chord route and FaceScape: 2
 # -0.06 dB), so the gate holds the mean over several draws
 QUALITY_SEEDS = 16
 NR = 4096                # rays per chunk of the preset
+# the latent-fetch variants on the fast preset (bench.py:196's turbo knob,
+# the stride the int8 latent's fix concerns, unique cells), timed requests
+RENDER_VARIANTS = {"turbo": {"latent_anchors": 8},
+                   "stride2": {"latent_sample_stride": 2},
+                   "unique12": {"latent_unique_cells": 12}}
+OPTION_REQUESTS = 2
 G, NC, A, NS = 1 * NV * NR, 1000, 256, 32   # one chunk of the preset
 TRAIN_CONFIG = ROOT / "configs" / "train_dtu.yaml"
 # a training step of train_dtu.yaml: SB scenes, one 64x64 patch each,
@@ -688,7 +714,8 @@ def phase_k4_backward(flush):
 def _serve_requests(server, scene, H, W, seeds, expected, label, card):
     """Requests with every kernel count set to 0 just before and read just
     after each; each must launch exactly `expected` kernels. Returns the
-    counts of the whole run and the request times."""
+    counts of the whole run, each request's rgb and the steady request
+    time."""
     import torch
 
     from diner_tpu_torch.kernels import KERNELS
@@ -696,7 +723,7 @@ def _serve_requests(server, scene, H, W, seeds, expected, label, card):
     for k in KERNELS.values():
         k.launches = 0
     counts = {n: [0] for n in KERNELS}
-    seconds, image = [], None
+    seconds, images = [], []
     for seed in seeds:
         t = time.perf_counter()
         rgb, depth = server.render("scene0", scene["target_extrinsics"][None],
@@ -711,7 +738,7 @@ def _serve_requests(server, scene, H, W, seeds, expected, label, card):
         check(rgb.min().item() >= 0.0 and rgb.max().item() <= 1.0,
               "rgb outside [0, 1]")
         check(bool(torch.isfinite(depth).all()), "depth not finite")
-        image = rgb if image is None else image
+        images.append(rgb)
         log(f"{label}: request {seed} {seconds[-1]:.4f} s, "
             f"{H * W / seconds[-1]:.1f} rays/s [{card}]")
     for n, c in counts.items():
@@ -724,7 +751,7 @@ def _serve_requests(server, scene, H, W, seeds, expected, label, card):
     log(f"{label}: {len(seeds)} requests at {H}x{W}, launches per request "
         f"{expected}; steady request {steady:.4f} s = "
         f"{H * W / steady:.1f} rays/s [{card}]")
-    return {n: c[-1] for n, c in counts.items()}, image
+    return {n: c[-1] for n, c in counts.items()}, images, steady
 
 
 def _server(preset, hw, card):
@@ -756,18 +783,18 @@ def phase_serve(card):
 
     server, scene = _server(DTU_PRESET, (H, W), card)
     chunks = -(-H * W // server.cfg.eval_chunk_rays)
-    v1, rgb_v1 = _serve_requests(
+    v1, rgb_v1, _ = _serve_requests(
         server, scene, H, W, range(N_REQUESTS),
         {"likelihood_from_anchors": chunks, "remap_anchors": chunks,
          "likelihood_from_chord": 0, "composite_rays": chunks,
          "composite_rays_backward": 0}, "serve v1", card)
     server.cfg = dataclasses.replace(server.cfg, likelihood="chord")
-    chord, rgb_chord = _serve_requests(
+    chord, rgb_chord, _ = _serve_requests(
         server, scene, H, W, range(2),
         {"likelihood_from_anchors": 0, "remap_anchors": chunks,
          "likelihood_from_chord": chunks, "composite_rays": chunks,
          "composite_rays_backward": 0}, "serve chord", card)
-    a, b = rgb_v1.cpu().numpy(), rgb_chord.cpu().numpy()
+    a, b = rgb_v1[0].cpu().numpy(), rgb_chord[0].cpu().numpy()
     agree = -10.0 * np.log10(max(float(np.mean((a - b) ** 2)), 1e-20))
     log(f"serve: request 0 on the chord route vs the v1 route (same seed, "
         f"random weights): {agree:.2f} dB")
@@ -785,6 +812,214 @@ def phase_facescape(card):
                      "remap_anchors": chunks, "likelihood_from_chord": 0,
                      "composite_rays": chunks,
                      "composite_rays_backward": 0}, "serve facescape", card)
+
+
+def _variant_preset(tmp: Path, name: str, knobs) -> Path:
+    """The fast DTU preset with `knobs` added to its nerf kwargs, as a YAML
+    file: the variant goes through from_preset and cli/build as a user's
+    preset would."""
+    import yaml
+
+    from diner_tpu_torch.core.config import load_config
+
+    conf = load_config(DTU_PRESET)
+    conf["nerf"]["kwargs"].update(knobs)
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(conf))
+    return path
+
+
+def _psnr_db(a, b):
+    import numpy as np
+
+    mse = float(np.mean((a.cpu().numpy() - b.cpu().numpy()) ** 2))
+    return float(-10.0 * np.log10(max(mse, 1e-20)))
+
+
+def phase_render_options(card):
+    """The three latent-fetch variants on the full-width fast DTU preset
+    (int8 quad latent included), random weights from seed 0: a warm-up and
+    2 requests each, K1, K2 and K4 20 times a request and K3 never; each
+    frame's PSNR against the plain fast render of the same seed (the same
+    draws). Returns the kernels' launches of the timed requests."""
+    from diner_tpu_torch.kernels import KERNELS
+
+    chunks = -(-H * W // NR)
+    expected = {"likelihood_from_anchors": chunks, "remap_anchors": chunks,
+                "likelihood_from_chord": 0, "composite_rays": chunks,
+                "composite_rays_backward": 0}
+    seeds = range(1, 1 + OPTION_REQUESTS)
+    launches = {n: 0 for n in KERNELS}
+    server, scene = _server(DTU_PRESET, (H, W), card)
+    _, plain, plain_s = _serve_requests(server, scene, H, W, seeds,
+                                        expected, "render_options plain",
+                                        card)
+    del server
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, knobs in RENDER_VARIANTS.items():
+            server, scene = _server(_variant_preset(Path(tmp), name, knobs),
+                                    (H, W), card)
+            check(all(getattr(server.model, k) == v
+                      for k, v in knobs.items()),
+                  f"{name}: the preset's {knobs} did not reach the model")
+            _serve_requests(server, scene, H, W, [0], expected,
+                            f"render_options {name} warm-up", card)
+            counts, images, steady = _serve_requests(
+                server, scene, H, W, seeds, expected,
+                f"render_options {name}", card)
+            for n in launches:
+                launches[n] += counts[n]
+            agree = [_psnr_db(a, b) for a, b in zip(images, plain)]
+            log(f"render_options {name} {knobs}: {steady:.4f} s a request "
+                f"(plain fast {plain_s:.4f} s), PSNR against the plain fast "
+                f"render of the same draws {[round(x, 2) for x in agree]} "
+                f"dB [{card}]")
+            del server
+            gc_cuda()
+    return launches
+
+
+def _frame(server, scene):
+    """The rays of the scene's target view at the server's bucket and the
+    encoding of its loaded scene."""
+    import torch
+
+    from diner_tpu_torch.geometry import gen_rays
+
+    dev = server.device
+    ext = torch.as_tensor(scene["target_extrinsics"][None], device=dev)
+    K = torch.as_tensor(scene["target_intrinsics"][None], device=dev)
+    rays = gen_rays(ext, K, W, H, torch.full((1,), server.znear, device=dev),
+                    torch.full((1,), server.zfar, device=dev))
+    return rays, server._scenes["scene0"]
+
+
+def phase_pipelined(card):
+    """The fast preset's frame through render_image(split=(field_gather,
+    field_mlp)), the sampler and gather of chunk i+1 on a second stream
+    beside chunk i's MLP and compositing, against render_image at the same
+    seed (the same draws): rgb and depth within 1e-6 and the same
+    launches; s a frame of both, and each one's device-busy share under
+    torch.profiler (the summed device time of all kernels over the wall
+    time, as profile_serve reads it). Returns the pipelined frames'
+    launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from diner_tpu_torch.renderer import render_image
+    from diner_tpu_torch.utils.profiling import device_tables
+
+    server, scene = _server(DTU_PRESET, (H, W), card)
+    rays, enc = _frame(server, scene)
+    model, cfg = server.model, server.cfg
+    split = (lambda p, aux: model.field_gather(enc, p, aux),
+             lambda g, p, d: model.field_mlp(enc, g, p, d))
+    renders = {
+        "chunked": lambda seed: render_image(
+            lambda p, d, aux: model.field(enc, p, d, aux), rays, enc, cfg,
+            chunk=server.chunk, seed=seed),
+        "pipelined": lambda seed: render_image(
+            None, rays, enc, cfg, chunk=server.chunk, seed=seed,
+            split=split)}
+    chunks = -(-H * W // server.chunk)
+    out, seconds, counts = {}, {}, {}
+    for name, fn in renders.items():
+        fn(0)   # warm-up
+        torch.cuda.synchronize()
+        _zero_launches()
+        seconds[name] = []
+        for seed in range(1, 1 + OPTION_REQUESTS):
+            t = time.perf_counter()
+            out[name] = fn(seed)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t)
+        counts[name] = _launches()
+        check(counts[name] == _expect(*(OPTION_REQUESTS * chunks,) * 3),
+              f"pipelined: {name} launches {counts[name]}")
+    for key, a, b in zip(("rgb", "depth"), out["pipelined"],
+                         out["chunked"]):
+        err = (a - b).abs().max().item()
+        log(f"pipelined: {key} of the last frame, pipelined vs chunked, max "
+            f"abs {err:.3g} (gate 1e-6)")
+        check(err <= 1e-6, f"pipelined {key} differs by {err}")
+    check(counts["pipelined"] == counts["chunked"],
+          "pipelined and chunked launches differ")
+    busy = {}
+    for name, fn in renders.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn(9)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy[name] = (device_tables(prof)[2] / 1e6, wall)
+    for name in renders:
+        log(f"pipelined: {name} {[round(x, 4) for x in seconds[name]]} s a "
+            f"frame at {H}x{W}; under the profiler {busy[name][1]:.4f} s, "
+            f"device busy {busy[name][0]:.4f} s = "
+            f"{busy[name][0] / busy[name][1]:.3f} [{card}]")
+    del server
+    gc_cuda()
+    return counts["pipelined"]
+
+
+def phase_sharded(card):
+    """render_image_sharded over ["cuda:0", "cuda:0"] (two shards of 40,960
+    rays on the one card) against render_image of each shard's rays, each
+    shard's noise passed to both: rgb and depth within 1e-6, and 20
+    launches of K1, K2 and K4 a frame. Returns the sharded frame's
+    launches."""
+    import torch
+
+    from diner_tpu_torch.renderer import render_image, render_image_sharded
+    from diner_tpu_torch.renderer.sharded import shard_rays
+
+    server, scene = _server(DTU_PRESET, (H, W), card)
+    rays, enc = _frame(server, scene)
+    model, cfg = server.model, server.cfg
+    devices = ["cuda:0", "cuda:0"]
+    per = -(-H * W // len(devices))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noise = [[(torch.rand(1, NR, cfg.n_depth_candidates, generator=gen,
+                          device="cuda"),
+               torch.randn(1, NR, cfg.n_gaussian, generator=gen,
+                           device="cuda"),
+               torch.rand(1, NR, cfg.n_samples, generator=gen,
+                          device="cuda"))
+              for _ in range(-(-per // NR))] for _ in devices]
+
+    def field(e, p, d, aux=None):
+        return model.field(e, p, d, aux)
+
+    render_image_sharded(field, rays, enc, cfg, devices, chunk=NR,
+                         noise=noise)   # warm-up
+    torch.cuda.synchronize()
+    _zero_launches()
+    t = time.perf_counter()
+    rgb, depth = render_image_sharded(field, rays, enc, cfg, devices,
+                                      chunk=NR, noise=noise)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = _launches()
+    chunks = len(devices) * -(-per // NR)
+    check(launches == _expect(chunks, chunks, chunks),
+          f"sharded launches {launches}, expected {chunks} of K1, K2, K4")
+    shards = shard_rays(rays, len(devices))
+    ref = [render_image(lambda p, d, aux: model.field(enc, p, d, aux),
+                        shards[i][:, None], enc, cfg, chunk=NR,
+                        noise=noise[i]) for i in range(len(devices))]
+    ref_rgb = torch.cat([r[0].reshape(1, per, 3) for r in ref], 1)[:, :H * W]
+    ref_depth = torch.cat([r[1].reshape(1, per) for r in ref], 1)[:, :H * W]
+    err = max((rgb.reshape(1, -1, 3) - ref_rgb).abs().max().item(),
+              (depth.reshape(1, -1) - ref_depth).abs().max().item())
+    log(f"sharded: {len(devices)} shards on {devices} at {H}x{W}: "
+        f"{seconds:.4f} s a frame, launches {launches}; against "
+        f"render_image of each shard max abs {err:.3g} (gate 1e-6) [{card}]")
+    check(err <= 1e-6, f"sharded render differs by {err}")
+    check(bool(torch.isfinite(rgb).all()), "sharded rgb not finite")
+    del server
+    gc_cuda()
+    return launches
 
 
 def _fixture():
@@ -840,6 +1075,10 @@ def _quality_renders():
              "fast": (fast, dict(n_prior_anchors=96)),
              "fast_chord": (fast, dict(n_prior_anchors=96,
                                        likelihood="chord"))}
+    # the latent-fetch variants on the fast path: recorded, not gated at
+    # 0.1 dB (none is certified)
+    paths.update({name: (dict(fast, **knobs), dict(n_prior_anchors=96))
+                  for name, knobs in RENDER_VARIANTS.items()})
 
     def psnr(x, y):
         return float(-10.0 * np.log10(np.mean((x - y) ** 2)))
@@ -872,6 +1111,10 @@ def _quality_renders():
             f"{[round(p, 4) for p in result[name]]} dB on the card")
     mean = {n: statistics.fmean(p) for n, p in result.items()}
     check(mean["exact_f32"] > 20.0, "fixture renders garbage")
+    for name in RENDER_VARIANTS:
+        log(f"quality: {name} mean PSNR-vs-GT {mean[name]:.4f} dB, "
+            f"{name} - exact {mean[name] - mean['exact_f32']:+.4f} dB, "
+            f"{name} - fast {mean[name] - mean['fast']:+.4f} dB (not gated)")
     for name in ("fast", "fast_chord"):
         delta = mean[name] - mean["exact_f32"]
         log(f"quality: mean PSNR-vs-GT exact {mean['exact_f32']:.4f} dB, "
@@ -920,8 +1163,9 @@ def phase_eval(card, keep: Path):
                       .iterdir())
         reports = sorted(p.name for p in (tmp / "out").iterdir())
         shutil.copytree(tmp / "out", keep)
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        _eval_shard_rays(tmp, card)
     chunks = 2 * -(-H * W // model.render_cfg.eval_chunk_rays)
-    launches = {n: k.launches for n, k in KERNELS.items()}
     log(f"eval: render_eval on 2 scenes at {H}x{W}: {len(pngs)} PNGs, "
         f"reports {reports}, scores {scores}, {seconds:.3f} s in all = "
         f"{seconds / 2:.3f} s per image with loading and scoring "
@@ -938,6 +1182,37 @@ def phase_eval(card, keep: Path):
                        "composite_rays": chunks,
                        "composite_rays_backward": 0},
           f"eval launches {launches}, expected {chunks} of K1, K2, K4")
+
+
+def _eval_shard_rays(tmp: Path, card):
+    """render_eval --shard-rays --n 1 on the bulk eval phase's config and
+    checkpoint: with one card it must say that it renders unsharded on one
+    device, launch K1, K2 and K4 20 times and give finite scores."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from diner_tpu_torch.cli import render_eval
+
+    _zero_launches()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        scores = render_eval.main([
+            "--config", str(tmp / "eval.yaml"), "--torch-ckpt",
+            str(tmp / "model.ckpt"), "--out", str(tmp / "out_shard"),
+            "--n", "1", "--shard-rays"])
+    print(text.getvalue(), end="", flush=True)
+    launches = _launches()
+    chunks = -(-H * W // NR)
+    log(f"sharded: render_eval --shard-rays on one image: scores {scores}, "
+        f"launches {launches} [{card}]")
+    check("rendering unsharded on one device" in text.getvalue(),
+          "render_eval --shard-rays did not say it renders unsharded")
+    check(all(np.isfinite(v) for v in scores.values()),
+          f"render_eval --shard-rays scores not finite: {scores}")
+    check(launches == _expect(chunks, chunks, chunks),
+          f"render_eval --shard-rays launches {launches}")
 
 
 def _train_config(tmp: Path, batch_size: int,
@@ -3307,6 +3582,11 @@ def main() -> int:
         del flush
         launches = phase_serve(card)
         phase_facescape(card)
+        for extra in (phase_render_options(card), phase_pipelined(card),
+                      phase_sharded(card)):
+            for n in ("likelihood_from_anchors", "remap_anchors",
+                      "composite_rays"):
+                launches[n] += extra[n]
         phase_quality()
         DATA_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:

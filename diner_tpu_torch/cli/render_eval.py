@@ -3,7 +3,8 @@ of diner_tpu.cli.render_eval).
 
     python -m diner_tpu_torch.cli.render_eval --config CONFIG.yaml \
         (--ckpt RUN/ckpts | --torch-ckpt MODEL.ckpt) --out OUTDIR [--n N] \
-        [--nsamples K] [--lpips WEIGHTS.npz] [--device cuda|cpu]
+        [--nsamples K] [--shard-rays] [--lpips WEIGHTS.npz] \
+        [--device cuda|cpu]
 
 --ckpt takes a checkpoint the port's trainer wrote (a ckpts directory,
 whose latest step is used, or one step_*.pt file); the model is the
@@ -18,7 +19,11 @@ overrides n_samples and scales n_gaussian with it, and znear/zfar come from
 the dataset. Writes OUTDIR/visualizations/*.png and the score reports in
 OUTDIR; prints the seconds per image and the mean scores. --lpips adds the
 LPIPS score (weights from scripts/port_lpips.py; see nn/lpips.py), on the
-same device as the renders.
+same device as the renders. --shard-rays splits each image's rays over
+every visible card (renderer/sharded.py: one model replica a card, a host
+thread each) when the device is cuda and more than one card is visible;
+otherwise it prints that it renders unsharded on one device and renders as
+without the flag.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import argparse
 import dataclasses
 import time
 from pathlib import Path
+
+import torch
 
 REFERENCE_ARCH = {"encoder_norm": "batch", "sigma_activation": "relu"}
 
@@ -43,6 +50,8 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=None, help="eval subset size")
     ap.add_argument("--nsamples", type=int, default=None,
                     help="override renderer n_samples (scales n_gaussian)")
+    ap.add_argument("--shard-rays", action="store_true",
+                    help="shard the ray axis over all devices (multi-chip)")
     ap.add_argument("--lpips", default=None,
                     help="LPIPS-VGG weights (.npz; scripts/port_lpips.py): "
                          "adds lpips to the scores")
@@ -102,9 +111,21 @@ def main(argv=None):
             n_gaussian=int(cfg.n_gaussian * scale))
     print(f"loaded {loaded}")
 
-    def render_fn(batch, seed):
-        rgb, depth = model.render_batch(batch, seed=seed, device=dev)
-        return rgb.cpu().numpy(), depth.cpu().numpy()
+    render_fn = None
+    if args.shard_rays:
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if n_cards > 1:
+            render_fn = _sharded_render_fn(
+                model, [torch.device("cuda", i) for i in range(n_cards)])
+            print(f"--shard-rays: rendering each image's rays over "
+                  f"{n_cards} cards")
+        else:
+            print(f"--shard-rays: {max(n_cards, 1)} {dev.type} device "
+                  f"visible; rendering unsharded on one device ({dev})")
+    if render_fn is None:
+        def render_fn(batch, seed):
+            rgb, depth = model.render_batch(batch, seed=seed, device=dev)
+            return rgb.cpu().numpy(), depth.cpu().numpy()
 
     out = Path(args.out)
     n_images = len(deterministic_subset(len(val_set), args.n))
@@ -123,6 +144,43 @@ def main(argv=None):
     scores = evaluate_folder(visdir, out, lpips_fn=lpips_fn)
     print({k: round(v, 4) for k, v in scores.items()})
     return scores
+
+
+def _sharded_render_fn(model, devices):
+    """render_fn with each image's rays sharded over `devices`: the source
+    views are encoded on devices[0], and the field evaluates on the replica
+    of its points' device."""
+    import copy
+
+    from diner_tpu_torch.geometry import gen_rays
+    from diner_tpu_torch.models.diner import to_tensors
+    from diner_tpu_torch.renderer.sharded import render_image_sharded
+
+    model.to(devices[0]).eval()
+    replicas = {devices[0]: model.nerf}
+    for d in devices[1:]:
+        if d not in replicas:
+            replicas[d] = copy.deepcopy(model.nerf).to(d).eval()
+
+    def field(enc, p, d, aux=None):
+        return replicas[p.device].field(enc, p, d, aux)
+
+    def render_fn(batch, seed):
+        with torch.inference_mode():
+            b = to_tensors(batch, devices[0])
+            SB, H, W, _ = b["target_rgb"].shape
+            enc = model.encode_batch(b)
+            rays = gen_rays(b["target_extrinsics"], b["target_intrinsics"],
+                            W, H, torch.full((SB,), model.znear,
+                                             device=devices[0]),
+                            torch.full((SB,), model.zfar,
+                                       device=devices[0]))
+            rgb, depth = render_image_sharded(
+                field, rays, enc, model.render_cfg, devices,
+                chunk=model.render_cfg.eval_chunk_rays, seed=seed)
+        return rgb.cpu().numpy(), depth.cpu().numpy()
+
+    return render_fn
 
 
 if __name__ == "__main__":

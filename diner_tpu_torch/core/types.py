@@ -44,6 +44,14 @@ class SceneEncoding:
         """(W, H) of the source images."""
         return (self.depths.shape[3], self.depths.shape[2])
 
+    def to(self, device) -> "SceneEncoding":
+        """The encoding with every tensor on `device` (a copy where it is
+        not there already)."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:

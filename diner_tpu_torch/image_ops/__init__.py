@@ -1,9 +1,10 @@
-from diner_tpu_torch.image_ops.grid_sample import (grid_sample,
+from diner_tpu_torch.image_ops.grid_sample import (exponential_pad,
+                                                   grid_sample,
                                                    grid_sample_quad,
                                                    pack_quad, quad_blend,
                                                    quad_cells)
 from diner_tpu_torch.image_ops.resize import (avg_pool2d,
                                               resize_bilinear_align_corners)
 
-__all__ = ["avg_pool2d", "grid_sample", "grid_sample_quad", "pack_quad",
+__all__ = ["avg_pool2d", "exponential_pad", "grid_sample", "grid_sample_quad", "pack_quad",
            "quad_blend", "quad_cells", "resize_bilinear_align_corners"]

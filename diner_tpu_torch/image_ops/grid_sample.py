@@ -3,10 +3,16 @@ diner_tpu.image_ops.grid_sample).
 
 Semantics of torch's grid_sample with align_corners=False: uv in [-1, 1],
 where -1/+1 are the outer edges of the border pixels. Maps stay NHWC so that
-each lookup reads one contiguous channel row.
+each lookup reads one contiguous channel row. The "exponential" padding
+(nearest mode only) extrapolates the border value, doubling it every
+`pad_double_width` px outside the image and giving 0 beyond `pad_size` px:
+the depth-std lookup's rule (src/util/torch_helpers.py:99-159 of the
+reference).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,27 +30,37 @@ def _gather_rows(flat, idx):
 
 
 def grid_sample(img, uv, mode: str = "bilinear",
-                padding_mode: str = "border"):
+                padding_mode: str = "border", pad_double_width: float = 20.0,
+                pad_size: int = 40):
     """Sample img (..., H, W, C) at uv (..., N, 2) (x, y order, same leading
-    dims). Modes: bilinear/border and nearest/border (the two the render path
-    uses), and bilinear/zeros (fusion's reprojection: corners outside the
-    image read 0). Returns (..., N, C)."""
+    dims). Modes: bilinear or nearest with "border" or "zeros" padding
+    (outside the image reads 0), and nearest with "exponential" padding
+    (pad_double_width, pad_size). Returns (..., N, C)."""
     batch_shape = img.shape[:-3]
     H, W, C = img.shape[-3:]
     N = uv.shape[-2]
     flat = img.reshape(-1, H * W, C)
     uvs = uv.reshape(-1, N, 2)
+    if padding_mode == "exponential":
+        if mode != "nearest":
+            raise ValueError("exponential padding is defined for nearest "
+                             "mode only")
+        out = _sample_exponential_nearest(flat, uvs, H, W, pad_double_width,
+                                          pad_size)
+        return out.reshape(*batch_shape, N, C)
+    if padding_mode not in ("border", "zeros"):
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
     zeros = padding_mode == "zeros"
-    if padding_mode != "border" and not (zeros and mode == "bilinear"):
-        raise ValueError(f"unsupported padding_mode {padding_mode!r} with "
-                         f"mode {mode!r}")
     ix = _unnormalize(uvs[..., 0], W)
     iy = _unnormalize(uvs[..., 1], H)
 
     if mode == "nearest":
-        jx = torch.round(ix).to(torch.int32).clamp(0, W - 1)
-        jy = torch.round(iy).to(torch.int32).clamp(0, H - 1)
-        out = _gather_rows(flat, jy * W + jx)
+        jx = torch.round(ix).to(torch.int32)
+        jy = torch.round(iy).to(torch.int32)
+        out = _gather_rows(flat, jy.clamp(0, H - 1) * W + jx.clamp(0, W - 1))
+        if zeros:
+            ok = (jx >= 0) & (jx < W) & (jy >= 0) & (jy < H)
+            out = out * ok[..., None].to(out.dtype)
         return out.reshape(*batch_shape, N, C)
     if mode != "bilinear":
         raise ValueError(f"unknown mode {mode!r}")
@@ -71,6 +87,44 @@ def grid_sample(img, uv, mode: str = "bilinear",
            + corner(y0i + 1, x0i, (1 - wx) * wy)
            + corner(y0i + 1, x0i + 1, wx * wy))
     return out.reshape(*batch_shape, N, C)
+
+
+def _sample_exponential_nearest(flat, uvs, H: int, W: int,
+                                double_width: float, pad: int):
+    """Nearest sampling of the exponentially padded image, computed without
+    padding it: the padded pixel at Chebyshev distance d (0 next to the
+    image) holds the border value times 2^(d / double_width); beyond `pad`
+    px it is 0. flat (B, H*W, C), uvs (B, N, 2) -> (B, N, C)."""
+    Hp, Wp = H + 2 * pad, W + 2 * pad
+    # uv rescaled to the padded image, then unnormalized on it
+    jxp = torch.round(_unnormalize(uvs[..., 0] * (W / Wp), Wp)).to(
+        torch.int32)
+    jyp = torch.round(_unnormalize(uvs[..., 1] * (H / Hp), Hp)).to(
+        torch.int32)
+    valid = (jxp >= 0) & (jxp < Wp) & (jyp >= 0) & (jyp < Hp)
+    jx, jy = jxp - pad, jyp - pad
+    dx = torch.maximum(-jx - 1, jx - W).clamp(min=0)
+    dy = torch.maximum(-jy - 1, jy - H).clamp(min=0)
+    d = torch.maximum(dx, dy).to(flat.dtype)
+    base = _gather_rows(flat, jy.clamp(0, H - 1) * W + jx.clamp(0, W - 1))
+    scale = torch.exp2(d / double_width) * valid.to(flat.dtype)
+    return base * scale[..., None]
+
+
+def exponential_pad(img, padding: int, double_width: float):
+    """The exponential padding materialized: img (B, H, W, C) edge-padded by
+    `padding` px, the border values times 2^(Chebyshev distance to the image
+    / double_width)."""
+    B, H, W, C = img.shape
+    yy = torch.arange(H + 2 * padding, device=img.device)
+    xx = torch.arange(W + 2 * padding, device=img.device)
+    base = img[:, (yy - padding).clamp(0, H - 1)][:, :,
+                                                  (xx - padding).clamp(0, W - 1)]
+    dy = torch.maximum(padding - 1 - yy, yy - (H + padding)).clamp(min=0)
+    dx = torch.maximum(padding - 1 - xx, xx - (W + padding)).clamp(min=0)
+    d = torch.maximum(dy[:, None], dx[None, :]).to(img.dtype)
+    return base * torch.exp(d / double_width * math.log(2.0))[None, :, :,
+                                                                None]
 
 
 def pack_quad(img):

@@ -129,7 +129,8 @@ class CudaKernel:
 
     `launch(*args)` calls the C function, which launches the kernel on the
     given stream and returns cudaGetLastError(); a nonzero code raises.
-    `launches` counts successful launches and nothing else.
+    `launches` counts successful launches and nothing else, under a lock:
+    several host threads (one a card) may launch at once.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -156,4 +157,5 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error "
                                f"{err}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1

@@ -137,7 +137,7 @@ def likelihood_from_chord(z, scal, vals, n_anchors: int,
     ids = (torch.empty((SB, NV, NR, NC), dtype=torch.int32, device=z.device)
            if return_ids else None)
     with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(z.device).cuda_stream
         KERNEL.launch(z.data_ptr(), scal.data_ptr(), vals.data_ptr(),
                       p.data_ptr(), None if ids is None else ids.data_ptr(),
                       SB, NV, NR, NC, A, float(depth_diff_max), threads,

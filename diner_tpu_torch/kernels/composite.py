@@ -188,7 +188,7 @@ def _launch_backward(rays, z_samp, field_out, g_rgb, g_depth, g_acc,
     if field_out.data_ptr() % 16:
         field_out = field_out.clone()
     with torch.cuda.device(z_samp.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(z_samp.device).cuda_stream
         BACKWARD.launch(rays.data_ptr(), z_samp.data_ptr(),
                         field_out.data_ptr(), g_rgb.data_ptr(),
                         g_depth.data_ptr(), g_acc.data_ptr(),
@@ -282,7 +282,7 @@ def _launch_forward(rays, z_samp, field_out, white_bkgd):
     z_samp, field_out = (t if t.data_ptr() % 16 == 0 else t.clone()
                          for t in (z_samp, field_out))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(rays.data_ptr(), z_samp.data_ptr(),
                       field_out.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
                       acc.data_ptr(), SB * B, K, int(white_bkgd), blocks,

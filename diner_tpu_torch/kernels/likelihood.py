@@ -93,7 +93,7 @@ def likelihood_from_anchors(a, vals, z_cam, half_step, depth_diff_max: float,
     sel = (torch.empty((G, 3, NC), dtype=torch.float32, device=a.device)
            if return_selected else None)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(a.device).cuda_stream
         KERNEL.launch(a.data_ptr(), vals.data_ptr(), z_cam.data_ptr(),
                       half_step.data_ptr(), out.data_ptr(),
                       None if sel is None else sel.data_ptr(), G, NC, A,

@@ -62,7 +62,7 @@ def remap_anchors(a, vals):
     a, vals = a.contiguous(), vals.contiguous()
     out = torch.empty((G, C, NS), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(a.device).cuda_stream
         KERNEL.launch(a.data_ptr(), vals.data_ptr(), out.data_ptr(), G, C,
                       NS, K, blocks, stream)
     return out
