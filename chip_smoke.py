@@ -196,6 +196,18 @@ last line:
      consensus fusion of a
      49-view DTU scan at 512x640 (the sphere scene): s and peak memory.
      The MVS phases launch none of K1-K4;
+  10l. preprocess: the offline preprocessing on the card, on closed
+     displaced spheres from seeded numpy draws: render_depth of a
+     1,000,000-triangle scan at 4096x3072 (8 views) and render_frame of a
+     14,000-triangle tracked mesh at MultiFace's 2048x1334 from a 40-cam
+     KRT file: ms per view, triangles/s, peak memory; the card against
+     device="cpu" on a 50,000-triangle view at 1024x768 (depths and masks
+     equal on at least 99.99% of the pixels, the rest counted);
+     facescape_pipeline.process_subject on a raw subject (8 JPEG views at
+     4096x3072, the 1M-triangle binary PLY, a similarity alignment), then
+     color_calib.calibrate_pose_dir and the FaceScape reader on the
+     processed pose: s per view; MultiFace's write_frame_outputs for the
+     40 cams and the MultiFace reader on that tree. No kernel launches;
   11. one JSON line {"kernels": [...]} with every kernel's launches on its
      route (phase 7; K1, K2 and K4 add phases 8b-8d's; K4's backward:
      phase 10b; both K4's add the ddp phases'), error and times (K4's entry
@@ -321,6 +333,17 @@ DDP_CHILD_TIMEOUT = 600
 # card vs CPU LPIPS of one image, TF32 off: VGG16's f32 convolutions in
 # other algorithms and orders of sums
 LPIPS_TOL = 1e-5
+# the preprocessing phase's meshes, closed displaced UV spheres of
+# 2 n_lon (n_lat - 1) triangles: a FaceScape scan (about 1M), a MultiFace
+# tracked mesh (about 14k) and the card-vs-CPU check's (50k); the raw
+# FaceScape views (H x W), their count and focal; MultiFace's cams
+PRE_SCAN_GRID, PRE_TRACKED_GRID, PRE_CHECK_GRID = (501, 1000), (71, 100), \
+    (126, 200)
+PRE_RAW_HW, PRE_VIEWS, PRE_RAW_FOCAL = (3072, 4096), 8, 7500.0
+PRE_CHECK_HW = (768, 1024)
+PRE_MF_CAMS, PRE_MF_FOCAL = (8, 5), 4000.0     # az x el grid
+# card vs CPU: pixels equal after the float32 cast, at least this share
+PRE_AGREE = 0.9999
 
 
 class SmokeFailure(Exception):
@@ -3469,6 +3492,366 @@ def phase_fuse(eval_root: Path, card):
     log(f"fuse: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def head_mesh(grid, radius, seed=0):
+    """A closed UV sphere of `grid` = (n_lat, n_lon), its radius displaced
+    by a few seeded ripples (a head-sized blob): vertices (V, 3) float64,
+    faces (2 n_lon (n_lat - 1), 3) int64."""
+    import numpy as np
+
+    n_lat, n_lon = grid
+    rng = np.random.RandomState(seed)
+    th = np.linspace(0, np.pi, n_lat + 1)[1:-1]
+    ph = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    r = np.ones_like(T)
+    for _ in range(4):
+        a, k, m, s = rng.uniform(0.01, 0.04), *rng.randint(1, 7, 2), \
+            rng.uniform(0, 2 * np.pi)
+        r += a * np.sin(k * T + s) * np.cos(m * P + s)
+    r *= radius
+    ring = np.stack([r * np.sin(T) * np.cos(P), r * np.sin(T) * np.sin(P),
+                     r * np.cos(T)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0.0, 0.0, radius]], ring,
+                            [[0.0, 0.0, -radius]]])
+    idx = 1 + np.arange((n_lat - 1) * n_lon).reshape(n_lat - 1, n_lon)
+    nxt = np.roll(idx, -1, axis=1)
+    last = len(verts) - 1
+    faces = np.concatenate([
+        np.stack([np.zeros(n_lon, np.int64), nxt[0], idx[0]], -1),
+        np.stack([idx[:-1], nxt[:-1], nxt[1:]], -1).reshape(-1, 3),
+        np.stack([idx[:-1], nxt[1:], idx[1:]], -1).reshape(-1, 3),
+        np.stack([np.full(n_lon, last), idx[-1], nxt[-1]], -1)])
+    return verts, faces.astype(np.int64)
+
+
+def write_ply_mesh(path: Path, verts, faces):
+    """A binary little-endian triangle PLY, the raw scans' format."""
+    import numpy as np
+
+    rec = np.empty(len(faces), np.dtype([("n", "u1"), ("i", "<i4", 3)]))
+    rec["n"], rec["i"] = 3, faces
+    head = (f"ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(verts)}\nproperty float x\n"
+            f"property float y\nproperty float z\n"
+            f"element face {len(faces)}\n"
+            f"property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(head.encode())
+        f.write(np.ascontiguousarray(verts, "<f4").tobytes())
+        f.write(rec.tobytes())
+
+
+def _render_s(fn):
+    """fn()'s result and host seconds, the card synchronized after it."""
+    import torch
+
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _shaded(depth, mask, gain):
+    """A view image from a depth render: shade by depth, a per-camera
+    colour gain, grey background; uint8 (H, W, 3) on the host."""
+    import torch
+
+    d = depth[mask]
+    lo, hi = d.min(), d.max()
+    t = ((depth - lo) / (hi - lo + 1e-9)).clamp(0, 1)
+    rgb = torch.stack([0.8 - 0.5 * t, 0.55 - 0.2 * t, 0.4 + 0.3 * t], -1)
+    rgb = rgb * torch.as_tensor(gain, device=rgb.device)
+    rgb = torch.where(mask[..., None], rgb, torch.full_like(rgb, 0.5))
+    return (rgb.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+
+
+def _facescape_cams(dist):
+    """PRE_VIEWS world->cam extrinsics about a head at the origin in the
+    FaceScape frame (-y frontal, z up): the four corners of the reader's
+    reference grid and four views inside them."""
+    import numpy as np
+
+    angles = [(-40, -25), (40, -25), (-40, 25), (40, 25),
+              (0, 0), (-12, 0), (12, 0), (0, 8)][:PRE_VIEWS]
+    return [_lookat(dist * np.array([np.sin(az) * np.cos(el),
+                                     -np.cos(az) * np.cos(el), np.sin(el)]),
+                    np.array([0.0, 0.0, -1.0]))
+            for az, el in np.radians(angles)]
+
+
+def write_raw_facescape(root: Path, verts_m, faces):
+    """One raw FaceScape subject in the preprocessing's input layout:
+    `01_neutral.ply` (the scan in mm, in the raw frame), `01_neutral/` with
+    params.json and PRE_VIEWS JPEG views at PRE_RAW_HW, and the
+    similarity that aligns the raw frame to the metric head frame (a
+    rotation, 1e-3 and a translation). The views shade the head's depth
+    rendered on the card. Returns the alignment dict."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from scipy.spatial.transform import Rotation
+
+    from diner_tpu_torch.preprocess.rasterizer import render_depth
+
+    R_a = Rotation.from_euler("xyz", [0.1, -0.25, 0.4]).as_matrix()
+    t_a = np.array([0.004, -0.01, 0.02])
+    s = 1e-3
+    raw = root / "01_neutral"
+    raw.mkdir(parents=True)
+    write_ply_mesh(root / "01_neutral.ply", (verts_m - t_a) @ R_a / s, faces)
+    H_, W_ = PRE_RAW_HW
+    K = np.array([[PRE_RAW_FOCAL, 0, W_ / 2], [0, PRE_RAW_FOCAL, H_ / 2],
+                  [0, 0, 1]])
+    v = torch.as_tensor(verts_m, device="cuda")
+    f = torch.as_tensor(faces, device="cuda")
+    rng = np.random.RandomState(0)
+    params = {}
+    for i, e in enumerate(_facescape_cams(1.0)):
+        depth, mask = render_depth(v, f, K, e, H_, W_, device="cuda")
+        Image.fromarray(_shaded(depth, mask, rng.uniform(0.8, 1.2, 3))).save(
+            raw / f"{i}.jpg", quality=90)
+        R_e = e[:3, :3] @ R_a
+        t_e = (e[:3, 3] + e[:3, :3] @ t_a) / s
+        params[f"{i}_K"] = K.tolist()
+        params[f"{i}_Rt"] = np.concatenate([R_e, t_e[:, None]], 1).tolist()
+        params[f"{i}_distortion"] = [0.01, -0.004, 0.0, 0.0, 0.0]
+        params[f"{i}_valid"] = True
+    (raw / "params.json").write_text(json.dumps(params))
+    Rt = np.eye(4)
+    Rt[:3, :3], Rt[:3, 3] = R_a, t_a
+    return {"01": {"scale": s, "Rt": Rt.tolist()}}
+
+
+def write_multiface_krt(path: Path):
+    """A MultiFace KRT of PRE_MF_CAMS cams at 1 m (mm units) about a head
+    at the origin, at MULTIFACE_RAW: {name: (K, [R|t] in mm)}."""
+    import numpy as np
+
+    H_, W_ = MULTIFACE_RAW
+    K = np.array([[PRE_MF_FOCAL, 0, W_ / 2], [0, PRE_MF_FOCAL, H_ / 2],
+                  [0, 0, 1]])
+    n_az, n_el = PRE_MF_CAMS
+    cams, lines = {}, []
+
+    def rows(m):
+        return [" ".join(repr(float(x)) for x in r) for r in m]
+
+    for j, el in enumerate(np.linspace(-0.3, 0.3, n_el)):
+        for i, az in enumerate(np.linspace(-0.5, 0.5, n_az)):
+            e = _lookat(np.array([np.sin(az) * np.cos(el), np.sin(el),
+                                  -np.cos(az) * np.cos(el)]),
+                        np.array([0.0, -1.0, 0.0]))
+            rt = e[:3].astype(np.float64)
+            rt[:, 3] *= 1000.0
+            name = f"4{j:02d}{i:03d}"
+            cams[name] = (K, rt)
+            lines += [name, *rows(K), "0 0 0 0 0", *rows(rt), ""]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines) + "\n")
+    return cams
+
+
+def phase_preprocess(card, tmp: Path):
+    """The offline preprocessing on the card, on synthetic heads (closed
+    displaced spheres from seeded numpy draws):
+    (a) render_depth of a FaceScape-scan-sized mesh (PRE_SCAN_GRID, 1M
+    triangles) at PRE_RAW_HW and of a MultiFace-tracked-mesh-sized one
+    (14,000) at MULTIFACE_RAW from its PRE_MF_CAMS cams: ms per view,
+    triangles per second, peak memory;
+    (b) the card against device="cpu" on one view of a 50,000-triangle
+    mesh at PRE_CHECK_HW: depths equal after the float32 cast and masks
+    equal on at least PRE_AGREE of the pixels (the rest: `inside` ties on
+    an edge, where the card's projection rounds another way), the count
+    printed;
+    (c) process_subject on a raw FaceScape subject (one pose, PRE_VIEWS
+    JPEG views at PRE_RAW_HW, the 1M-triangle binary PLY, a similarity
+    alignment), calibrate_pose_dir on its output, then the port's FaceScape
+    reader on the processed pose (the GT depth standing in for the MVS
+    prior, a constant confidence): s per view;
+    (d) render_frame and write_frame_outputs for every cam of a KRT file at
+    MULTIFACE_RAW, RGB frames beside them, then the port's MultiFace reader
+    on that tree. No kernel launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diner_tpu_torch.data.codecs import read_depth_png, write_png16
+    from diner_tpu_torch.data.facescape import FacescapeDataset
+    from diner_tpu_torch.data.multiface import MultiFaceDataset, load_krt
+    from diner_tpu_torch.fusion.ply import read_ply_mesh
+    from diner_tpu_torch.preprocess import color_calib, facescape_pipeline
+    from diner_tpu_torch.preprocess import multiface as mf
+    from diner_tpu_torch.preprocess.rasterizer import render_depth
+
+    t_phase = time.perf_counter()
+    gc_cuda()
+    _zero_launches()
+    dev = torch.device("cuda")
+
+    # (a) the rasterizer alone
+    scan_v, scan_f = head_mesh(PRE_SCAN_GRID, 0.1, seed=0)
+    H_, W_ = PRE_RAW_HW
+    K = np.array([[PRE_RAW_FOCAL, 0, W_ / 2], [0, PRE_RAW_FOCAL, H_ / 2],
+                  [0, 0, 1]])
+    cams = _facescape_cams(1.0)
+    v, f = torch.as_tensor(scan_v, device=dev), torch.as_tensor(scan_f,
+                                                                device=dev)
+    render_depth(v, f, K, cams[0], H_, W_, device=dev)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for e in cams:
+        (d, m), s = _render_s(lambda: render_depth(v, f, K, e, H_, W_,
+                                                   device=dev))
+        secs.append(s)
+        check(bool(m.any()) and not bool(m.all())
+              and float(d[m].min()) > 0.85 and float(d.max()) < 1.15,
+              f"preprocess: the scan's render reads {float(d.max())} m")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(secs) * 1e3
+    log(f"preprocess: render_depth of {len(scan_f)} triangles at {H_}x{W_}: "
+        f"{ms:.2f} ms per view (median of {len(secs)} views; "
+        f"{min(secs) * 1e3:.2f}-{max(secs) * 1e3:.2f}), "
+        f"{len(scan_f) / (ms / 1e3):.4g} triangles/s, "
+        f"{int(m.sum())} pixels hit, peak {peak:.3f} GiB [{card}]")
+    del v, f, d, m
+    tr_v, tr_f = head_mesh(PRE_TRACKED_GRID, 100.0, seed=1)     # mm
+    krt_path = tmp / "multiface" / "m--20180227--0000--0000000--GHS" / "KRT"
+    write_multiface_krt(krt_path)
+    krt = load_krt(krt_path)
+    Hm, Wm = MULTIFACE_RAW
+    v, f = torch.as_tensor(tr_v, device=dev), torch.as_tensor(tr_f,
+                                                              device=dev)
+    mf.render_frame(v, f, next(iter(krt.values())), Hm, Wm, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frames, secs = {}, []
+    for name, entry in krt.items():
+        frames[name], s = _render_s(lambda: mf.render_frame(
+            v, f, entry, Hm, Wm, device=dev))
+        secs.append(s)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(secs) * 1e3
+    check(all(bool(m.any()) for _, m in frames.values()),
+          "preprocess: a MultiFace cam saw no head")
+    log(f"preprocess: render_frame of {len(tr_f)} triangles at {Hm}x{Wm} "
+        f"from {len(krt)} cams: {ms:.3f} ms per view (median; "
+        f"{min(secs) * 1e3:.3f}-{max(secs) * 1e3:.3f}), "
+        f"{len(tr_f) / (ms / 1e3):.4g} triangles/s, peak {peak:.3f} GiB "
+        f"[{card}]")
+
+    # (b) the card against the CPU
+    ck_v, ck_f = head_mesh(PRE_CHECK_GRID, 0.1, seed=2)
+    Hc, Wc = PRE_CHECK_HW
+    Kc = np.array([[2.2 * Wc, 0, Wc / 2 + 0.3], [0, 2.2 * Wc, Hc / 2 - 0.2],
+                   [0, 0, 1]])
+    ec = _facescape_cams(1.0)[5]
+    dg, mg = render_depth(ck_v, ck_f, Kc, ec, Hc, Wc, device="cuda")
+    dc, mc = render_depth(ck_v, ck_f, Kc, ec, Hc, Wc, device="cpu")
+    dg, mg = dg.cpu().numpy(), mg.cpu().numpy()
+    dc, mc = dc.numpy(), mc.numpy()
+    off = (dg != dc) | (mg != mc)
+    n_off = int(off.sum())
+    log(f"preprocess: card vs CPU, {len(ck_f)} triangles at {Hc}x{Wc}: "
+        f"{n_off} of {off.size} pixels differ ({int((mg != mc).sum())} in "
+        f"the mask), {int(mc.sum())} hit on the CPU")
+    check(mc.any() and n_off <= (1 - PRE_AGREE) * off.size,
+          f"preprocess: card and CPU renders differ at {n_off} pixels")
+
+    # (c) a raw FaceScape subject through the pipeline, the calibration
+    # and the reader
+    raw = tmp / "facescape_raw" / "122"
+    align = write_raw_facescape(raw, scan_v, scan_f)
+    out_root = tmp / "facescape"
+    (_, s_subject) = _render_s(lambda: facescape_pipeline.process_subject(
+        raw, out_root / "122", align, crop_out=FACESCAPE_HW[0],
+        device="cuda"))
+    pose = out_root / "122" / "01"
+    cams_out = json.loads((pose / "cameras.json").read_text())
+    check(len(cams_out) == PRE_VIEWS,
+          f"preprocess: process_subject wrote {len(cams_out)} views")
+    R = np.asarray(cams_out["0"]["extrinsics"])[:, :3]
+    d0 = read_depth_png(pose / "view_00000" / "depth.png")
+    check(np.abs(R @ R.T - np.eye(3)).max() < 1e-5
+          and 0.85 < d0[d0 > 0].min() and d0.max() < 1.15,
+          f"preprocess: processed depth in [{d0[d0 > 0].min()}, {d0.max()}]"
+          " m, or the cameras are not rigid")
+    verts, faces = read_ply_mesh(raw / "01_neutral.ply")
+    a = align["01"]
+    Rt = np.asarray(a["Rt"], np.float32)
+    verts = facescape_pipeline.apply_similarity(verts, a["scale"],
+                                                Rt[:3, :3], Rt[:3, 3])
+    transforms, s_calib = _render_s(lambda: color_calib.calibrate_pose_dir(
+        pose, verts, faces, device="cuda"))
+    check(len(transforms) == PRE_VIEWS
+          and all(np.isfinite(A).all() for A in transforms.values()),
+          "preprocess: calibrate_pose_dir")
+    for view in sorted(pose.glob("view_*")):
+        d = read_depth_png(view / "depth.png")
+        write_png16(view / "depth_conf.png",
+                    np.round(np.where(d > 0, 0.9, 0) / 1e-4))
+    ds = FacescapeDataset(out_root, stage="val", val_subjects=["122"],
+                          meta_dir=tmp / "facescape_meta",
+                          depth_fname="depth.png")
+    sample = ds[0]
+    check(len(ds) > 0 and sample["target_rgb"].shape == (*FACESCAPE_HW, 3)
+          and np.isfinite(sample["src_rgbs"]).all()
+          and sample["src_depths"].max() > 0.85,
+          f"preprocess: the FaceScape reader on the processed pose "
+          f"({len(ds)} metas)")
+    log(f"preprocess: FaceScape process_subject, {PRE_VIEWS} JPEG views at "
+        f"{H_}x{W_} and {len(faces)} triangles (reads, undistort, render, "
+        f"crop, PNGs): {s_subject / PRE_VIEWS:.3f} s per view; "
+        f"calibrate_pose_dir {s_calib / PRE_VIEWS:.3f} s per view; the "
+        f"reader: {len(ds)} metas, sample {sample['sample_name']} [{card}]")
+
+    # (d) MultiFace frames of every KRT cam, and the reader
+    mf_root = krt_path.parent.parent
+    seq = "E001_Neutral"
+    secs = []
+    for name, (depth, mask) in frames.items():
+        t = time.perf_counter()
+        mf.write_frame_outputs(
+            depth, mask,
+            mf_root / krt_path.parent.name / "depths" / seq / name
+            / "000001.png",
+            mf_root / krt_path.parent.name / "masks" / seq / name
+            / "000001.png")
+        secs.append(time.perf_counter() - t)
+        img = mf_root / krt_path.parent.name / "images" / seq / name
+        img.mkdir(parents=True)
+        Image.fromarray(_shaded(depth, mask, (1.0, 1.0, 1.0))).save(
+            img / "000001.png", compress_level=1)
+    corners = [f"4{j:02d}{i:03d}" for j, i in
+               ((0, 0), (0, PRE_MF_CAMS[0] - 1),
+                (PRE_MF_CAMS[1] - 1, PRE_MF_CAMS[0] - 1),
+                (PRE_MF_CAMS[1] - 1, 0))]
+    centers = [(-rt[:, :3].T @ rt[:, 3]).tolist()
+               for rt in (np.asarray(krt[c]["extrin"]) for c in corners)]
+    split = tmp / "multiface_meta" / "split.json"
+    split.parent.mkdir(parents=True)
+    split.write_text(json.dumps({
+        "val": {"subjects": [krt_path.parent.name], "sequences": [seq],
+                "ref_centers": centers},
+        "train": {"subjects": [], "sequences": [], "ref_centers": []}}))
+    ds = MultiFaceDataset(mf_root, downsample=8, split_config=split,
+                          meta_dir=split.parent)
+    sample = ds[0]
+    h, w = (Hm // 8) // 32 * 32, (Wm // 8) // 32 * 32
+    check(len(ds) == len(krt) - 4
+          and sample["target_rgb"].shape == (h, w, 3)
+          and sample["src_depths"].max() > 0.85
+          and sorted(sample["src_view_ids"].tolist())
+          == sorted(int(c) for c in corners),
+          f"preprocess: the MultiFace reader on the rendered tree "
+          f"({len(ds)} metas)")
+    log(f"preprocess: MultiFace write_frame_outputs (uint16 depth and "
+        f"mask PNGs at {Hm}x{Wm}): {statistics.fmean(secs):.3f} s per cam; "
+        f"the reader: {len(ds)} metas at {h}x{w} [{card}]")
+    check(_launches() == _expect(), f"preprocess launched {_launches()}")
+    log(f"preprocess: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def mvs_option_profiles() -> int:
     """`python3 chip_smoke.py --mvs-profiles`: the device time by operator
     of one `write` sample and one training step (batch 1, after a warm-up
@@ -3612,6 +3995,7 @@ def main() -> int:
             phase_mvs_options(dtu_root, card, work)
             phase_mvs_ranks(dtu_root, card, work)
             phase_fuse(work / "mvs_eval", card)
+            phase_preprocess(card, work)
         for k in kernels:
             k["launches"] = launches[k["name"]]
     except Exception:  # every phase failure ends the run without a result

@@ -146,7 +146,7 @@ def read_ply_mesh(path):
         np_t = {"float": "f4", "float32": "f4", "double": "f8",
                 "uchar": "u1", "uint8": "u1", "char": "i1", "short": "i2",
                 "ushort": "u2", "int": "i4", "int32": "i4", "uint": "u4"}
-        verts, faces = None, []
+        verts, faces, tri_blocks = None, [], []
         for name, cnt, props in elements:
             if fmt == b"ascii":
                 rows = [f.readline().split() for _ in range(cnt)]
@@ -168,6 +168,16 @@ def read_ply_mesh(path):
                                  -1).astype(np.float32)
             elif name == "face":
                 (_, (cnt_t, idx_t)), = [p for p in props if p[0] == "__list__"]
+                if len(props) == 1:
+                    # a mesh of triangles alone reads as one record array
+                    pos = f.tell()
+                    tri = np.fromfile(f, np.dtype([("n", np_t[cnt_t]),
+                                                   ("i", np_t[idx_t], 3)]),
+                                      cnt)
+                    if len(tri) == cnt and (tri["n"] == 3).all():
+                        tri_blocks.append(tri["i"].astype(np.int32))
+                        continue
+                    f.seek(pos)
                 for _ in range(cnt):
                     k = int(np.fromfile(f, np_t[cnt_t], 1)[0])
                     idxs = np.fromfile(f, np_t[idx_t], k).astype(np.int64)
@@ -178,4 +188,5 @@ def read_ply_mesh(path):
                 np.fromfile(f, rec, cnt)
     if verts is None:
         raise ValueError("PLY has no vertex element")
-    return verts, np.asarray(faces, np.int32).reshape(-1, 3)
+    return verts, np.concatenate(
+        [np.asarray(faces, np.int32).reshape(-1, 3), *tri_blocks])

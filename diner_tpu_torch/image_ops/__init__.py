@@ -1,3 +1,4 @@
+from diner_tpu_torch.image_ops.downsample import masked_downsample
 from diner_tpu_torch.image_ops.grid_sample import (exponential_pad,
                                                    grid_sample,
                                                    grid_sample_quad,
@@ -6,5 +7,6 @@ from diner_tpu_torch.image_ops.grid_sample import (exponential_pad,
 from diner_tpu_torch.image_ops.resize import (avg_pool2d,
                                               resize_bilinear_align_corners)
 
-__all__ = ["avg_pool2d", "exponential_pad", "grid_sample", "grid_sample_quad", "pack_quad",
-           "quad_blend", "quad_cells", "resize_bilinear_align_corners"]
+__all__ = ["avg_pool2d", "exponential_pad", "grid_sample", "grid_sample_quad",
+           "masked_downsample", "pack_quad", "quad_blend", "quad_cells",
+           "resize_bilinear_align_corners"]

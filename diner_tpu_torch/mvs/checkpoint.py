@@ -4,7 +4,8 @@ reference TransMVSNet's torch checkpoints -> the port's state_dict.
 The port's module tree carries the reference's names, so a reference
 checkpoint ({"epoch", "model", "optimizer"}, a Lightning-style
 {"state_dict": ...} or a bare state dict, keys with or without DDP's
-"module." prefix) loads by its own keys (`load_reference_state_dict`).
+"module." prefix) loads by its own keys (`load_reference_state_dict`), and
+`to_reference_state_dict` gives the port's weights back in that layout.
 
 `from_jax` maps `diner_tpu.mvs.TransMVSNet`'s {"params", "batch_stats"}:
 - conv kernels HWIO -> OIHW and DHWIO -> OIDHW;
@@ -171,3 +172,15 @@ def load_reference_state_dict(net, source) -> None:
                        f"architecture: missing {missing}, unexpected "
                        f"{unexpected}, misshapen {misshapen}")
     net.load_state_dict(sd, strict=False)
+
+
+def to_reference_state_dict(net) -> Dict[str, torch.Tensor]:
+    """The port's TransMVSNet (or its state_dict) -> the reference's state
+    dict, the inverse of `load_reference_state_dict` and the counterpart of
+    the JAX package's `export_transmvsnet`: bare keys (no DDP "module."
+    prefix, the single-GPU load path of the reference's train.py:100-104)
+    and no BatchNorm step counters, CPU tensors. Save it as
+    torch.save({"epoch": step, "model": sd}, path)."""
+    sd = net.state_dict() if isinstance(net, torch.nn.Module) else net
+    return {k: v.detach().cpu().clone() for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")}

@@ -53,7 +53,8 @@ from diner_tpu_torch.cli import mvs as mvs_cli
 from diner_tpu_torch.data import codecs
 from diner_tpu_torch.mvs import (TransMVSNet, deform_conv2d,
                                  depth_range_samples, depth_wta, from_jax,
-                                 homo_warping, load_reference_state_dict)
+                                 homo_warping, load_reference_state_dict,
+                                 to_reference_state_dict)
 from diner_tpu_torch.mvs import datasets
 from diner_tpu_torch.mvs.fmt import linear_attention, sine_position_encoding_2d
 from diner_tpu_torch.mvs.layers import Deconv3dBnRelu
@@ -412,6 +413,45 @@ def test_reference_checkpoint_loads_as_from_jax(cascade, cascade_run,
                    dict(bare, **{"feature.extra.weight": torch.zeros(1)})):
         with pytest.raises(KeyError):
             load_reference_state_dict(TransMVSNet(**ARCH), broken)
+
+
+def test_to_reference_state_dict_is_export_transmvsnet(cascade):
+    """The port's weights in the reference layout: JAX's
+    export_transmvsnet of the same variables, key for key and bit for
+    bit (bare keys, no BatchNorm step counters)."""
+    variables, _, port = cascade
+    want = export_transmvsnet(variables)
+    for got in (to_reference_state_dict(port),
+                to_reference_state_dict(port.state_dict())):
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            assert got[k].dtype == torch.float32, k
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), k)
+
+
+def test_export_torch_mvs_loads_back(cascade, tmp_path, capsys):
+    """`export_torch mvs` on the port's MVS training checkpoint (the newest
+    step) writes {"epoch", "model"}, which load_reference_state_dict loads
+    back to the same state_dict."""
+    from diner_tpu_torch.cli import export_torch
+    from diner_tpu_torch.mvs.train import make_optimizer, save_checkpoint
+
+    _, _, port = cascade
+    opt = make_optimizer(port, 1e-3)
+    save_checkpoint(tmp_path / "ckpts", port, opt, 4)
+    save_checkpoint(tmp_path / "ckpts", TransMVSNet(**ARCH), opt, 2)
+    out = tmp_path / "transmvsnet.ckpt"
+    export_torch.main(["mvs", "--ckpt", str(tmp_path / "ckpts"), "--out",
+                       str(out)])
+    assert "from step 4" in capsys.readouterr().out
+    ckpt = torch.load(out, weights_only=True)
+    assert set(ckpt) == {"epoch", "model"} and ckpt["epoch"] == 4
+    assert not any(k.startswith("module.") for k in ckpt["model"])
+    net = TransMVSNet(**ARCH).eval()
+    load_reference_state_dict(net, out)
+    want = port.state_dict()
+    for k, v in net.state_dict().items():
+        assert torch.equal(v, want[k]), k
 
 
 # -- datasets --------------------------------------------------------------
