@@ -923,9 +923,9 @@ def phase_pipelined(card):
     beside chunk i's MLP and compositing, against render_image at the same
     seed (the same draws): rgb and depth within 1e-6 and the same
     launches; s a frame of both, and each one's device-busy share under
-    torch.profiler (the summed device time of all kernels over the wall
-    time, as profile_serve reads it). Returns the pipelined frames'
-    launches."""
+    torch.profiler (the union of the device's kernel, copy and set
+    intervals over the wall time, as profile_serve reads it). Returns the
+    pipelined frames' launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

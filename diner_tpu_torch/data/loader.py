@@ -7,6 +7,9 @@ seed gives the JAX package's index order. Per-process index slices (the
 DistributedSampler equivalent) come from
 `parallel.mesh.process_local_slice`: each rank of a process group loads its
 own slice, padded so that every rank yields the same number of batches.
+Under a torch.profiler the consumer's wait for a batch is the span
+`loader.wait`, and a wait that found no batch ready adds to the counter
+`loader.empty_waits` (utils.profiling).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 
 from diner_tpu_torch.data.contract import collate, to_device_batch
 from diner_tpu_torch.parallel.mesh import process_local_slice
+from diner_tpu_torch.utils.profiling import count, span
 
 
 class BatchLoader:
@@ -113,7 +117,12 @@ class BatchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("loader.wait"):
+                    try:
+                        item = q.get_nowait()
+                    except queue.Empty:
+                        count("loader.empty_waits")
+                        item = q.get()
                 if item is None:
                     if error:
                         raise error[0]

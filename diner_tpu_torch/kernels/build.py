@@ -6,7 +6,9 @@ root, then loaded with ctypes. The file name carries a hash of the source, so
 an edited kernel is rebuilt and a built one is reused. Nothing is built at
 import time: a kernel is built at its first launch, or all of them in
 parallel by `build_all()`. A host library, `csrc/<name>.cpp`, is built the
-same way by the C++ compiler (`host_library`).
+same way by the C++ compiler (`host_library`). Each compiler run and each
+library load adds one to the counter `kernels.builds`
+(`utils.profiling.count`), which shows a build inside a profiled period.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import List, Sequence
+
+from diner_tpu_torch.utils.profiling import count
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diner_tpu_torch"
@@ -59,6 +63,7 @@ def _start_build(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    count("kernels.builds")
     return proc, tmp, out
 
 
@@ -97,6 +102,7 @@ def host_library(name: str) -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_cxx(), *HOST_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
+    count("kernels.builds")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"c++ failed for csrc/{name}.cpp (exit "
@@ -146,6 +152,7 @@ class CudaKernel:
             if self._fn is None:
                 build_all([self.source])
                 lib = ctypes.CDLL(str(library_path(self.source)))
+                count("kernels.builds")
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int

@@ -31,6 +31,7 @@ from diner_tpu_torch.losses import (antibias_loss, mse_loss,
 from diner_tpu_torch.models.pixelnerf import PixelNeRF
 from diner_tpu_torch.nn.vgg import Vgg19Features
 from diner_tpu_torch.renderer import render_image, render_rays
+from diner_tpu_torch.utils.profiling import span
 
 SOURCE_KEYS = ("src_rgbs", "src_depths", "src_depth_stds", "src_extrinsics",
                "src_intrinsics")
@@ -133,22 +134,23 @@ class DINER(nn.Module):
                            rays, enc, self.render_cfg, noise,
                            generator)["rgb"]
 
-        loss_fine = mse_loss(pred, gt)
-        total = loss_fine
-        out = {"rgb_fine": loss_fine}
-        if self._patch_losses:
-            s = self.vgg_spatch
-            pred_img = pred.reshape(SB, s, s, 3)
-            gt_img = gt.reshape(SB, s, s, 3)
-            if self.w_vgg > 0:
-                out["vgg_fine"] = vgg_perceptual_loss(self.vgg, pred_img,
-                                                      gt_img)
-                total = total + self.w_vgg * out["vgg_fine"]
-            if self.w_antibias > 0:
-                out["antibias"] = antibias_loss(pred_img, gt_img,
-                                                self.antibias_downsampling)
-                total = total + self.w_antibias * out["antibias"]
-        out["total"] = total
+        with span("train.losses"):
+            loss_fine = mse_loss(pred, gt)
+            total = loss_fine
+            out = {"rgb_fine": loss_fine}
+            if self._patch_losses:
+                s = self.vgg_spatch
+                pred_img = pred.reshape(SB, s, s, 3)
+                gt_img = gt.reshape(SB, s, s, 3)
+                if self.w_vgg > 0:
+                    out["vgg_fine"] = vgg_perceptual_loss(self.vgg, pred_img,
+                                                          gt_img)
+                    total = total + self.w_vgg * out["vgg_fine"]
+                if self.w_antibias > 0:
+                    out["antibias"] = antibias_loss(
+                        pred_img, gt_img, self.antibias_downsampling)
+                    total = total + self.w_antibias * out["antibias"]
+            out["total"] = total
         return out
 
     def render_batch(self, batch: Dict, chunk: Optional[int] = None,

@@ -22,6 +22,10 @@ Training: `encode(..., train=True)` runs the encoder's norms in train mode
 `remat_field=True` recomputes the field MLP's activations in the backward
 pass instead of keeping them (torch.utils.checkpoint), as the JAX
 package's nn.remat does.
+
+Under a torch.profiler, `encode`, `field_gather` and `field_mlp` are the
+spans `model.encode`, `field.gather` (the latent fetch and the MVS depth
+lookup; counter `field.samples`) and `field.mlp` (utils.profiling).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from diner_tpu_torch.image_ops import (grid_sample, grid_sample_quad,
 from diner_tpu_torch.kernels.remap import remap_anchors
 from diner_tpu_torch.nn import ResnetFC, SpatialEncoder, posenc, posenc_dim
 from diner_tpu_torch.sampler.depth_guided import anchor_ids
+from diner_tpu_torch.utils.profiling import count, span
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -328,39 +333,40 @@ class PixelNeRF(nn.Module):
         """images (SB, NV, H, W, 3) in [0, 1]; depths/stds (SB, NV, H, W, 1);
         extrinsics (SB, NV, 4, 4); intrinsics (SB, NV, 3, 3). train puts the
         encoder in train mode, else in eval mode."""
-        self.encoder.train(train)
-        SB, NV, H, W, _ = images.shape
-        mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype,
-                            device=images.device)
-        std = torch.tensor(IMAGENET_STD, dtype=images.dtype,
-                           device=images.device)
-        x = (images - mean) / std
+        with span("model.encode"):
+            self.encoder.train(train)
+            SB, NV, H, W, _ = images.shape
+            mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype,
+                                device=images.device)
+            std = torch.tensor(IMAGENET_STD, dtype=images.dtype,
+                               device=images.device)
+            x = (images - mean) / std
 
-        normals = depth2normal(depths.reshape(SB * NV, H, W, 1),
-                               intrinsics.reshape(SB * NV, 3, 3))
-        normals = normals.reshape(SB, NV, H, W, 3)
+            normals = depth2normal(depths.reshape(SB * NV, H, W, 1),
+                                   intrinsics.reshape(SB * NV, 3, 3))
+            normals = normals.reshape(SB, NV, H, W, 3)
 
-        latent = self.encoder(x.reshape(SB * NV, H, W, 3))
-        latent = latent.reshape(SB, NV, *latent.shape[1:])
-        latent_scale = None
-        if self.latent_quant == "int8":
-            scale = latent.abs().amax(dim=(0, 1, 2, 3)) / 127.0
-            scale = scale.clamp(min=1e-12)
-            latent = torch.round(latent / scale).clamp(-127, 127).to(
-                torch.int8)
-            latent_scale = scale.float()
-        elif self.dtype is not None:
-            latent = latent.to(self.dtype)
+            latent = self.encoder(x.reshape(SB * NV, H, W, 3))
+            latent = latent.reshape(SB, NV, *latent.shape[1:])
+            latent_scale = None
+            if self.latent_quant == "int8":
+                scale = latent.abs().amax(dim=(0, 1, 2, 3)) / 127.0
+                scale = scale.clamp(min=1e-12)
+                latent = torch.round(latent / scale).clamp(-127, 127).to(
+                    torch.int8)
+                latent_scale = scale.float()
+            elif self.dtype is not None:
+                latent = latent.to(self.dtype)
 
-        focal = torch.stack([intrinsics[..., 0, 0], intrinsics[..., 1, 1]],
-                            -1)
-        return SceneEncoding(
-            latent=latent, depths=depths, depth_stds=depth_stds,
-            normals=normals, poses=extrinsics, focal=focal,
-            c=intrinsics[..., :2, 2],
-            latent_quad=pack_quad(latent) if self.quad_latent else None,
-            latent_scale=latent_scale,
-            feature_padding=self.encoder.feature_padding)
+            focal = torch.stack([intrinsics[..., 0, 0],
+                                 intrinsics[..., 1, 1]], -1)
+            return SceneEncoding(
+                latent=latent, depths=depths, depth_stds=depth_stds,
+                normals=normals, poses=extrinsics, focal=focal,
+                c=intrinsics[..., :2, 2],
+                latent_quad=pack_quad(latent) if self.quad_latent else None,
+                latent_scale=latent_scale,
+                feature_padding=self.encoder.feature_padding)
 
     def field_gather(self, enc: SceneEncoding, xyz,
                      epi_aux: Optional[EpiAnchors] = None):
@@ -368,53 +374,56 @@ class PixelNeRF(nn.Module):
         and the per-sample MVS depth. Returns dict(latent (SB, NV, B, C),
         ref_depth (SB, NV, B)). With epi_aux, a latent-fetch variant applies
         if one is set (anchors, then unique cells, then a stride > 1)."""
-        SB, B, _ = xyz.shape
-        NV = enc.poses.shape[1]
-        xyz_cam = transform_points(enc.poses, xyz[:, None].expand(SB, NV, B,
-                                                                  3))
-        uv = project_points(xyz_cam, enc.focal, enc.c, enc.image_shape)
-        if self.latent_anchors and epi_aux is not None:
-            latent = index_latent_anchored(enc, uv, epi_aux,
-                                           self.latent_anchors)
-        elif self.latent_unique_cells and epi_aux is not None:
-            latent = index_latent_unique(enc, uv, epi_aux.uv0.shape[2],
-                                         self.latent_unique_cells)
-        elif self.latent_sample_stride > 1 and epi_aux is not None:
-            latent = index_latent_strided(enc, uv, epi_aux.uv0.shape[2],
-                                          self.latent_sample_stride)
-        else:
-            latent = index_latent(enc, uv)
-        if epi_aux is not None:
-            ref_depth = _anchor_ref_depth(epi_aux, uv)
-        else:
-            ref_depth = index_depth(enc, uv)[..., 0]
-        return {"latent": latent, "ref_depth": ref_depth}
+        with span("field.gather"):
+            SB, B, _ = xyz.shape
+            count("field.samples", SB * B)
+            NV = enc.poses.shape[1]
+            xyz_cam = transform_points(enc.poses,
+                                       xyz[:, None].expand(SB, NV, B, 3))
+            uv = project_points(xyz_cam, enc.focal, enc.c, enc.image_shape)
+            if self.latent_anchors and epi_aux is not None:
+                latent = index_latent_anchored(enc, uv, epi_aux,
+                                               self.latent_anchors)
+            elif self.latent_unique_cells and epi_aux is not None:
+                latent = index_latent_unique(enc, uv, epi_aux.uv0.shape[2],
+                                             self.latent_unique_cells)
+            elif self.latent_sample_stride > 1 and epi_aux is not None:
+                latent = index_latent_strided(enc, uv, epi_aux.uv0.shape[2],
+                                              self.latent_sample_stride)
+            else:
+                latent = index_latent(enc, uv)
+            if epi_aux is not None:
+                ref_depth = _anchor_ref_depth(epi_aux, uv)
+            else:
+                ref_depth = index_depth(enc, uv)[..., 0]
+            return {"latent": latent, "ref_depth": ref_depth}
 
     def field_mlp(self, enc: SceneEncoding, gathered, xyz, viewdirs):
         """Positional features + conditioned MLP + heads -> (SB, B, 4)."""
-        SB, B, _ = xyz.shape
-        NV = enc.poses.shape[1]
-        xyz_cam = transform_points(enc.poses, xyz[:, None].expand(SB, NV, B,
-                                                                  3))
-        z_feature = posenc(xyz_cam, self.num_freqs, self.freq_factor)
-        rot = enc.poses[..., :3, :3]
-        dirs_cam = viewdirs[:, None].expand(SB, NV, B, 3) @ rot.transpose(
-            -1, -2)
-        depth_dist = gathered["ref_depth"] - xyz_cam[..., 2]
-        depth_feature = posenc(depth_dist[..., None], self.num_freqs,
-                               self.freq_factor)
-        mlp_in = torch.cat([gathered["latent"], z_feature, dirs_cam,
-                            depth_feature], dim=-1)
-        if self.remat_field and torch.is_grad_enabled():
-            out = checkpoint(self.mlp, mlp_in, 1, use_reentrant=False)
-        else:
-            out = self.mlp(mlp_in, 1)                      # (SB, B, 4)
-        rgb = torch.sigmoid(out[..., :3])
-        if self.sigma_activation == "softplus":
-            sigma = F.softplus(out[..., 3:4])
-        else:
-            sigma = F.relu(out[..., 3:4])
-        return torch.cat([rgb, sigma], dim=-1)
+        with span("field.mlp"):
+            SB, B, _ = xyz.shape
+            NV = enc.poses.shape[1]
+            xyz_cam = transform_points(enc.poses,
+                                       xyz[:, None].expand(SB, NV, B, 3))
+            z_feature = posenc(xyz_cam, self.num_freqs, self.freq_factor)
+            rot = enc.poses[..., :3, :3]
+            dirs_cam = (viewdirs[:, None].expand(SB, NV, B, 3)
+                        @ rot.transpose(-1, -2))
+            depth_dist = gathered["ref_depth"] - xyz_cam[..., 2]
+            depth_feature = posenc(depth_dist[..., None], self.num_freqs,
+                                   self.freq_factor)
+            mlp_in = torch.cat([gathered["latent"], z_feature, dirs_cam,
+                                depth_feature], dim=-1)
+            if self.remat_field and torch.is_grad_enabled():
+                out = checkpoint(self.mlp, mlp_in, 1, use_reentrant=False)
+            else:
+                out = self.mlp(mlp_in, 1)                      # (SB, B, 4)
+            rgb = torch.sigmoid(out[..., :3])
+            if self.sigma_activation == "softplus":
+                sigma = F.softplus(out[..., 3:4])
+            else:
+                sigma = F.relu(out[..., 3:4])
+            return torch.cat([rgb, sigma], dim=-1)
 
     def field(self, enc: SceneEncoding, xyz, viewdirs,
               epi_aux: Optional[EpiAnchors] = None):

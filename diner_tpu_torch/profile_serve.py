@@ -8,9 +8,11 @@ from configs/evaluate_diner_on_dtu_fast.yaml, random weights from seed 0, a
 synthetic 4-view 256x320 scene) on the given likelihood route (the preset's
 "v1", kernel K1, or "chord", kernel K3), warms it up with one request, then
 runs N requests under torch.profiler. Prints the card, each request's wall time,
-the device-busy share (the summed device time of all kernels over the wall
-time), and the operators and the kernels by device time; --json also writes
-them to PATH. Needs a CUDA device.
+the device-busy share (the union of the device's kernel, copy and set
+intervals over the wall time), the operators and the kernels by device time,
+and the program's spans (calls, host ms and stream ms in total and self) and
+counters (utils/profiling.py), each per request; --json also writes them to
+PATH. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ def main(argv=None) -> int:
     from diner_tpu_torch.data import SyntheticSphereDataset
     from diner_tpu_torch.serve import RenderServer
     from diner_tpu_torch.utils.profiling import (card_name, device_tables,
-                                                 print_tables, tables_json)
+                                                 print_report, print_tables,
+                                                 report_json, tables_json,
+                                                 take_report)
 
     resolve_device("cuda")
     card = card_name()
@@ -70,6 +74,7 @@ def main(argv=None) -> int:
             request(i + 1)
             wall.append(time.perf_counter() - t)
 
+    report = take_report()
     operators, kernels, busy_us = device_tables(prof)
     wall_s = sum(wall)
     n = args.requests
@@ -79,12 +84,14 @@ def main(argv=None) -> int:
           f"(profiler on); device busy {busy_us / 1e6:.4f} s of "
           f"{wall_s:.4f} s = {busy_us / 1e6 / wall_s:.3f}")
     print_tables(operators, kernels, busy_us, n, "request", args.top)
+    print_report(report, n, "request")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "likelihood": args.likelihood,
                        "requests_s": wall,
                        "device_busy_s": busy_us / 1e6,
-                       **tables_json(operators, kernels, n, "request")},
+                       **tables_json(operators, kernels, n, "request"),
+                       **report_json(report, n, "request")},
                       f, indent=1)
     return 0
 

@@ -12,9 +12,11 @@ runs --steps train steps (batch --batch, `remat_field` with --remat), each
 timed to its end on the card; then --profile-steps more under
 torch.profiler. Prints the card, the TF32 settings, each step's seconds,
 the median after the first two, the peak of torch.cuda.max_memory_allocated
-over the timed steps, the device-busy share of the profiled steps and their
-operators and kernels by device time; --json also writes them to PATH.
-Needs a CUDA device.
+over the timed steps, the device-busy share of the profiled steps (the union
+of the device's kernel, copy and set intervals over their wall time), their
+operators and kernels by device time, and the program's spans (calls, host
+ms and stream ms in total and self) and counters (utils/profiling.py), each
+per step; --json also writes them to PATH. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ def main(argv=None) -> int:
     from diner_tpu_torch.train import create_train_state, train_step
     from diner_tpu_torch.train.loop import step_generator
     from diner_tpu_torch.utils.profiling import (card_name, device_tables,
-                                                 print_tables, tables_json)
+                                                 print_report, print_tables,
+                                                 report_json, tables_json,
+                                                 take_report)
 
     dev = resolve_device("cuda")
     card = card_name()
@@ -105,14 +109,17 @@ def main(argv=None) -> int:
                 t = time.perf_counter()
                 step(args.steps + i)
                 wall.append(time.perf_counter() - t)
+        report = take_report()
         operators, kernels, busy_us = device_tables(prof)
         n = args.profile_steps
         print(f"profiled steps {[round(w, 4) for w in wall]} s (profiler "
               f"on); device busy {busy_us / 1e6:.4f} s of {sum(wall):.4f} s "
               f"= {busy_us / 1e6 / sum(wall):.3f}")
         print_tables(operators, kernels, busy_us, n, "step", args.top)
+        print_report(report, n, "step")
         result.update(profiled_step_s=wall, device_busy_s=busy_us / 1e6,
-                      **tables_json(operators, kernels, n, "step"))
+                      **tables_json(operators, kernels, n, "step"),
+                      **report_json(report, n, "step"))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)

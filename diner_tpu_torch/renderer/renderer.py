@@ -12,6 +12,11 @@ while chunk i's MLP and compositing run, on a second CUDA stream.
 
 Randomness: each chunk takes its noise as a (u_strat, g, u_fill) tuple
 (see sample_depthguided), or draws it from a generator.
+
+Spans (utils.profiling): `renderer.rays` around render_rays (one chunk of
+render_flat_chunked, or a training step's rays) and `composite` around K4
+on both routes; counters `renderer.chunks` and `renderer.padded_rays` (the
+rays that repeat the last one to fill the last chunk).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from diner_tpu_torch.core.types import RenderConfig, SceneEncoding
 from diner_tpu_torch.kernels.composite import composite_rays
 from diner_tpu_torch.renderer.composite import sample_points
 from diner_tpu_torch.sampler.depth_guided import sample_depthguided
+from diner_tpu_torch.utils.profiling import count, span
 
 FieldFn = Callable[[torch.Tensor, torch.Tensor, Optional[object]],
                    torch.Tensor]
@@ -35,14 +41,16 @@ def render_rays(field_fn: FieldFn, rays, enc: SceneEncoding,
     """rays (SB, B, 8) -> dict(rgb (SB, B, 3), depth (SB, B)); the field's
     outputs are composited by kernel K4. The sampler runs under no_grad, as
     the reference samples; gradients flow through the field and K4."""
-    with torch.no_grad():
-        z, epi_aux = sample_depthguided(rays, enc, cfg, noise, generator,
-                                        return_aux=True)
-    if not cfg.anchor_field_depth:
-        epi_aux = None
-    points, dirs = sample_points(rays, z)
-    rgb, depth, _ = composite_rays(rays, z, field_fn(points, dirs, epi_aux),
-                                   cfg.white_bkgd)
+    with span("renderer.rays"):
+        with torch.no_grad():
+            z, epi_aux = sample_depthguided(rays, enc, cfg, noise, generator,
+                                            return_aux=True)
+        if not cfg.anchor_field_depth:
+            epi_aux = None
+        points, dirs = sample_points(rays, z)
+        out = field_fn(points, dirs, epi_aux)
+        with span("composite"):
+            rgb, depth, _ = composite_rays(rays, z, out, cfg.white_bkgd)
     return {"rgb": rgb, "depth": depth}
 
 
@@ -56,6 +64,8 @@ def _pad_to_chunks(flat, chunk: int, noise):
         flat = torch.cat([flat, flat[:, -1:].expand(SB, n_pad, 8)], dim=1)
     if noise is not None and len(noise) != n_chunks:
         raise ValueError(f"noise for {len(noise)} chunks, need {n_chunks}")
+    count("renderer.chunks", n_chunks)
+    count("renderer.padded_rays", SB * n_pad)
     return flat, n_chunks
 
 
@@ -128,8 +138,9 @@ def render_flat_pipelined(gather_fn, mlp_fn, flat, enc: SceneEncoding,
 
     def compute(carry):
         rays, z, points, dirs, gathered = carry
-        rgb, depth, _ = composite_rays(rays, z, mlp_fn(gathered, points,
-                                                       dirs), cfg.white_bkgd)
+        out = mlp_fn(gathered, points, dirs)
+        with span("composite"):
+            rgb, depth, _ = composite_rays(rays, z, out, cfg.white_bkgd)
         return rgb, depth
 
     rgbs, depths = [], []

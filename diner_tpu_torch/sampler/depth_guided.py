@@ -33,6 +33,7 @@ from diner_tpu_torch.core.types import (LIKELIHOOD_ROUTES, EpiAnchors,
 from diner_tpu_torch.geometry import project_points, transform_points
 from diner_tpu_torch.kernels.chord import likelihood_from_chord
 from diner_tpu_torch.kernels.likelihood import likelihood_from_anchors
+from diner_tpu_torch.utils.profiling import span
 from diner_tpu_torch.utils.stats import weighted_mean_and_std
 
 _PAD, _DOUBLE_WIDTH = 100, 12.0  # exponential std padding (index_depth_std)
@@ -363,36 +364,37 @@ def sample_depthguided(rays, enc: SceneEncoding, cfg: RenderConfig,
     if cfg.n_samples < cfg.n_gaussian:
         raise ValueError("n_samples must be >= n_gaussian")
     u_strat, g_noise, u_fill = noise if noise is not None else (None,) * 3
+    with span("sampler"):
+        z_cand = sample_stratified(rays, cfg.n_depth_candidates, u_strat,
+                                   generator)
+        p, opaque, aux = surface_likelihoods(
+            rays, z_cand, enc, cfg.depth_diff_max,
+            prior_stride=cfg.prior_stride,
+            n_prior_anchors=cfg.n_prior_anchors,
+            paired_prior_gather=cfg.paired_prior_gather, return_aux=True,
+            likelihood=cfg.likelihood)
 
-    z_cand = sample_stratified(rays, cfg.n_depth_candidates, u_strat,
-                               generator)
-    p, opaque, aux = surface_likelihoods(
-        rays, z_cand, enc, cfg.depth_diff_max,
-        prior_stride=cfg.prior_stride, n_prior_anchors=cfg.n_prior_anchors,
-        paired_prior_gather=cfg.paired_prior_gather, return_aux=True,
-        likelihood=cfg.likelihood)
+        top_p, top_idx = torch.topk(p, cfg.n_samples, dim=-1)
+        z_sel = torch.gather(z_cand, -1, top_idx)
+        z_sel = torch.where(top_p == 0, torch.zeros_like(z_sel), z_sel)
 
-    top_p, top_idx = torch.topk(p, cfg.n_samples, dim=-1)
-    z_sel = torch.gather(z_cand, -1, top_idx)
-    z_sel = torch.where(top_p == 0, torch.zeros_like(z_sel), z_sel)
+        if cfg.n_gaussian > 0:
+            hit = (opaque != 0).any(dim=-1, keepdim=True)
+            mean, std = weighted_mean_and_std(z_cand, opaque, axis=-1,
+                                              keepdims=True)
+            if g_noise is None:
+                g_noise = torch.randn((*z_sel.shape[:-1], cfg.n_gaussian),
+                                      generator=generator, dtype=z_sel.dtype,
+                                      device=z_sel.device)
+            g = g_noise * std + mean
+            # clamp into [near, far], with a lower bound > 0 so that a
+            # clamped draw never equals the empty-slot marker 0
+            lo = rays[..., None, 6].clamp(min=1e-6)
+            g = torch.minimum(torch.maximum(g, lo), rays[..., None, 7])
+            g = torch.where(hit, g, torch.zeros_like(g))
+            z_sel = torch.cat([z_sel[..., : -cfg.n_gaussian], g], dim=-1)
 
-    if cfg.n_gaussian > 0:
-        hit = (opaque != 0).any(dim=-1, keepdim=True)
-        mean, std = weighted_mean_and_std(z_cand, opaque, axis=-1,
-                                          keepdims=True)
-        if g_noise is None:
-            g_noise = torch.randn((*z_sel.shape[:-1], cfg.n_gaussian),
-                                  generator=generator, dtype=z_sel.dtype,
-                                  device=z_sel.device)
-        g = g_noise * std + mean
-        # clamp into [near, far], with a lower bound > 0 so that a clamped
-        # draw never equals the empty-slot marker 0
-        lo = rays[..., None, 6].clamp(min=1e-6)
-        g = torch.minimum(torch.maximum(g, lo), rays[..., None, 7])
-        g = torch.where(hit, g, torch.zeros_like(g))
-        z_sel = torch.cat([z_sel[..., : -cfg.n_gaussian], g], dim=-1)
-
-    z_out = fill_uniform(z_sel, rays, u_fill, generator)
-    if return_aux:
-        return z_out, aux
-    return z_out
+        z_out = fill_uniform(z_sel, rays, u_fill, generator)
+        if return_aux:
+            return z_out, aux
+        return z_out

@@ -10,6 +10,9 @@ diner_tpu.serve.RenderServer).
   (H, W) buckets.
 - Requests may come from any thread: a lock keeps the scene table
   consistent.
+- Under a torch.profiler, each call is a span (`serve.load_scene`,
+  `serve.render`) and a request adds to the counters `serve.requests` and
+  `serve.rays` (utils.profiling).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from diner_tpu_torch.core.types import RenderConfig, SceneEncoding
 from diner_tpu_torch.geometry import gen_rays
 from diner_tpu_torch.models.pixelnerf import PixelNeRF
 from diner_tpu_torch.renderer import render_image
+from diner_tpu_torch.utils.profiling import count, span
 
 
 class RenderServer:
@@ -75,9 +79,10 @@ class RenderServer:
                    src_extrinsics, src_intrinsics) -> None:
         """Encode the source views (SB, NV, ...) once and keep the encoding
         on the device."""
-        enc = self.model.encode(*(self._tensor(x) for x in (
-            src_rgbs, src_depths, src_depth_stds, src_extrinsics,
-            src_intrinsics)))
+        with span("serve.load_scene"):
+            enc = self.model.encode(*(self._tensor(x) for x in (
+                src_rgbs, src_depths, src_depth_stds, src_extrinsics,
+                src_intrinsics)))
         with self._lock:
             self._scenes[scene_id] = enc
 
@@ -102,11 +107,15 @@ class RenderServer:
         if enc is None:
             raise ValueError(
                 f"unknown scene {scene_id!r}; loaded: {self.scene_ids()}")
-        ext = self._tensor(target_extrinsics)
-        SB = ext.shape[0]
-        rays = gen_rays(ext, self._tensor(target_intrinsics), W, H,
-                        torch.full((SB,), self.znear, device=self.device),
-                        torch.full((SB,), self.zfar, device=self.device))
-        return render_image(
-            lambda p, d, aux: self.model.field(enc, p, d, aux), rays, enc,
-            self.cfg, chunk=self.chunk, seed=seed, device=self.device)
+        with span("serve.render"):
+            ext = self._tensor(target_extrinsics)
+            SB = ext.shape[0]
+            count("serve.requests")
+            count("serve.rays", SB * H * W)
+            rays = gen_rays(ext, self._tensor(target_intrinsics), W, H,
+                            torch.full((SB,), self.znear, device=self.device),
+                            torch.full((SB,), self.zfar, device=self.device))
+            return render_image(
+                lambda p, d, aux: self.model.field(enc, p, d, aux), rays,
+                enc, self.cfg, chunk=self.chunk, seed=seed,
+                device=self.device)

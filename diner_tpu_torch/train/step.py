@@ -17,6 +17,11 @@ losses and a non-finite flag: the logged losses are the global means, and
 a batch that is not finite on any rank is skipped on every rank. After the
 backward the gradients are averaged over the ranks
 (`parallel.all_reduce_grads_`), which is the global batch's gradient.
+
+Under a torch.profiler the step is the span `train.step`, around
+`train.backward` (the backward and the gradients' all-reduce) and
+`train.optimizer` (Adam and the schedule), and adds to the counters
+`train.steps` and `train.skipped_nonfinite` (utils.profiling).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from diner_tpu_torch.parallel.mesh import (all_reduce_grads_,
                                            all_reduce_sum_, world_size)
 from diner_tpu_torch.train.state import TrainState
+from diner_tpu_torch.utils.profiling import count, span
 
 
 def _norm_buffers(model):
@@ -42,30 +48,35 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     """One update of `state` from a batch of tensors on the model's device;
     returns the losses as floats and `skipped_nonfinite`. pix and noise
     replace the model's draws (see DINER.losses)."""
-    model = state.model
-    buffers = _norm_buffers(model)
-    saved = [b.clone() for b in buffers]
-    state.optimizer.zero_grad(set_to_none=True)
-    losses = model.losses(batch, train=True, pix=pix, noise=noise,
-                          generator=generator)
-    world = world_size()
-    names = list(losses)
-    total = losses["total"].detach()
-    packed = torch.stack([losses[k].detach().float() for k in names]
-                         + [(~torch.isfinite(total)).float()])
-    values = (all_reduce_sum_(packed) / world).tolist()
-    finite = values[-1] == 0.0
-    if finite:
-        losses["total"].backward()
-        all_reduce_grads_(p for g in state.optimizer.param_groups
-                          for p in g["params"])
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-    else:
-        with torch.no_grad():
-            for b, s in zip(buffers, saved):
-                b.copy_(s)
+    with span("train.step"):
+        count("train.steps")
+        model = state.model
+        buffers = _norm_buffers(model)
+        saved = [b.clone() for b in buffers]
+        state.optimizer.zero_grad(set_to_none=True)
+        losses = model.losses(batch, train=True, pix=pix, noise=noise,
+                              generator=generator)
+        world = world_size()
+        names = list(losses)
+        total = losses["total"].detach()
+        packed = torch.stack([losses[k].detach().float() for k in names]
+                             + [(~torch.isfinite(total)).float()])
+        values = (all_reduce_sum_(packed) / world).tolist()
+        finite = values[-1] == 0.0
+        if finite:
+            with span("train.backward"):
+                losses["total"].backward()
+                all_reduce_grads_(p for g in state.optimizer.param_groups
+                                  for p in g["params"])
+            with span("train.optimizer"):
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+        else:
+            count("train.skipped_nonfinite")
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
     out = dict(zip(names, values[:-1]))
     out["skipped_nonfinite"] = 0.0 if finite else 1.0
     return out
